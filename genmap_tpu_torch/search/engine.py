@@ -1,0 +1,468 @@
+"""Lockstep (k,e)-search over blocks of adjacent k-mers, on torch tensors.
+
+Port of `genmap_tpu/search/engine.py` (the mono-row path without the probe,
+the split pipeline or the dimer table; those only change speed, never
+results):
+
+  * a batch of B blocks is processed at once; each block contributes one
+    common overlap infix that is searched with every optimal search scheme
+  * search states (bidirectional SA interval pair + error count) live in a
+    capacity-bounded frontier; every step extends ALL states by ALL
+    candidate characters (`kernels.candidate_step`), prunes by the scheme's
+    (l, u) bounds and empty intervals, and compacts the frontier
+    (`kernels.compact`)
+  * surviving infix matches are extended to every k-mer window of the block
+    along a binary doubling tree, again as a lockstep frontier over
+    [B, nodes, Fe] states, and counted (`kernels.count_tail`)
+  * frontier overflows are flagged per block and re-run at a higher capacity
+    tier by the host — semantics stay exact, capacity only affects speed
+
+PyTorch runs eagerly, so the JAX package's `lax.scan` segments are Python
+loops over steps; per-step plan attributes (needle position, direction,
+error bounds) are small per-group tables the candidate kernel indexes by
+each state's plan id.
+
+State tensors: `st` int32 [R, B, F] with rows flo, rlo, size (uint32 bits),
+err and — in the infix, R = 5 — the plan id; `valid` uint8 [B, F].
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from genmap_tpu_torch import kernels
+from genmap_tpu_torch.ops.rank import (
+    DeviceIndex,
+    DeviceText,
+    extract_needles,
+    seed_level_offset,
+)
+from genmap_tpu_torch.search.schemes import plans_for
+
+
+@dataclass(frozen=True)
+class Tier:
+    """Frontier capacities (infix search, collected survivors, extension) and
+    the rank mode.
+
+    `exact=False` uses the one-row fast rank path, which is exact only for
+    intervals that fit the row's 1024-symbol window; wider intervals flag
+    the block and it re-runs on the next (exact) tier.  Capacity and rank
+    mode only affect speed, never results."""
+
+    f_search: int
+    f_collect: int
+    f_extend: int
+    exact: bool = True
+
+
+DEFAULT_TIERS = (
+    Tier(4, 4, 1, exact=False),
+    Tier(4, 4, 1),
+    Tier(32, 64, 8),
+    Tier(256, 512, 64),
+    Tier(2048, 4096, 512),
+    Tier(16384, 32768, 4096),
+)
+
+
+# pool sizes need not be powers of two: a [B, 3] frontier does 25% less work
+# than [B, 4].  The fine rungs (2/3/6) are only used where the survivor
+# count has low variance (branch estimate ~0); branchy steps keep
+# power-of-two headroom.
+_POOL_LADDER = (2, 3, 4, 6, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
+                8192, 16384)
+_POOL_LADDER_COARSE = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
+                       8192, 16384)
+
+
+def _quant4(v: float, cap: int = 16384, ladder=_POOL_LADDER) -> int:
+    for q in ladder:
+        if q >= v or q >= cap:
+            return min(q, cap)
+    return cap
+
+
+def infix_pool_schedule(plans, infix_off, n_total, scale: float = 1.0):
+    """Static per-step infix pool sizes.
+
+    Branch states exist only where a scheme's u-bound allows errors; their
+    number is bounded by the error-placement combinatorics, and a branch
+    pattern of length t survives (size > 0) with probability
+    ~min(1, 2n/4^t).  The pool of each STEP is sized from this estimate
+    (x2 safety, quantized); overflow beyond it escalates the block."""
+    pos_s, right_s, u_s, lreq_s = _plan_schedule(plans, infix_off)
+    T, P = u_s.shape
+    h = np.zeros(P, np.int64)
+    pools = np.zeros(T, np.int64)
+    for t in range(T):
+        q = min(1.0, 2.0 * float(n_total) / 4.0 ** (t + 1))
+        branch = 0.0
+        for p in range(P):
+            if u_s[t, p] > 0:
+                h[p] += 1
+            b = sum(
+                math.comb(int(h[p]), j) * 3**j for j in range(int(u_s[t, p]) + 1)
+            )
+            branch += (b - 1) * q
+        floor = _quant4(P + 1) if P == 1 else max(4, _quant4(P + 1))
+        ladder = _POOL_LADDER if branch <= 0.2 else _POOL_LADDER_COARSE
+        pools[t] = max(
+            floor, _quant4((P + 1 + 2.0 * branch) * scale, ladder=ladder)
+        )
+    return pools
+
+
+def exact_prefix_steps(n_total: int, target: int = 64) -> int:
+    """Number of initial infix steps run on the exact two-row path in a fast
+    tier: intervals start at size n_total and shrink ~4x per character, so
+    after ceil(log4(n/target)) steps a typical interval fits the one-row
+    window.  Blocks that stay wide longer are caught by `far`."""
+    n = max(int(n_total), 1)
+    return max(0, math.ceil(math.log(n / target, 4))) if n > target else 0
+
+
+def _plan_schedule(plans, infix_off):
+    """Stack all plans' step lists into [T, P] schedule arrays (pos, right,
+    u, lreq).  Every plan consumes exactly the needle length, so all plans
+    advance in lockstep."""
+    T = plans[0].n_steps
+    P = len(plans)
+    pos = np.zeros((T, P), np.int32)
+    right = np.zeros((T, P), bool)
+    u = np.zeros((T, P), np.int32)
+    lreq = np.zeros((T, P), np.int32)
+    for p, plan in enumerate(plans):
+        t = 0
+        for seg in plan.segments:
+            n = len(seg.pos)
+            pos[t : t + n, p] = seg.pos + infix_off
+            right[t : t + n, p] = seg.right
+            u[t : t + n, p] = seg.u
+            lreq[t : t + n, p] = seg.lreq
+            t += n
+        if t != T:
+            raise ValueError(f"plan {p} covers {t} of {T} infix steps")
+    return pos, right, u, lreq
+
+
+def extension_extra_estimate(plans, infix_off, n_total) -> float:
+    """Expected count of non-primary infix survivors (error-branch patterns
+    of the full infix still present in the genome).  When non-negligible,
+    tier 0 starts at f_extend=4 instead of overflowing many blocks."""
+    _pos, _right, u_s, _lreq = _plan_schedule(plans, infix_off)
+    T, P = u_s.shape
+    q = min(1.0, 2.0 * float(n_total) / 4.0**T)
+    extra = 0.0
+    for p in range(P):
+        h = int((u_s[:, p] > 0).sum())
+        b = sum(math.comb(h, j) * 3**j for j in range(int(u_s[T - 1, p]) + 1))
+        extra += (b - 1) * q
+    return extra
+
+
+def _compact(st, valid, F: int):
+    """Keep the first F valid states of every row ([R, rows, M] -> F),
+    in order; returns (st, valid, overflowed [rows] bool)."""
+    out, out_valid, ovf = kernels.compact(st, valid, F)
+    return out, out_valid, ovf.bool()
+
+
+def _resize(st, valid, Fnew: int):
+    """Grow the last axis by zero padding or shrink it by compaction;
+    returns (st, valid, overflowed rows or None)."""
+    Fold = st.shape[-1]
+    if Fnew == Fold:
+        return st, valid, None
+    if Fnew > Fold:
+        return Fn.pad(st, (0, Fnew - Fold)), Fn.pad(valid, (0, Fnew - Fold)), None
+    R = st.shape[0]
+    lead = st.shape[1:-1]
+    out, v, of = _compact(st.reshape(R, -1, Fold), valid.reshape(-1, Fold), Fnew)
+    return out.view(R, *lead, Fnew), v.view(*lead, Fnew), of.view(lead)
+
+
+class _InfixSchedule:
+    """Device-side per-step plan tables of the pooled infix scan."""
+
+    def __init__(self, plans, infix_off, dev):
+        pos_s, right_s, u_s, lreq_s = _plan_schedule(plans, infix_off)
+        self.P = len(plans)
+        self.T = len(pos_s)
+        self.pos_np, self.u_np = pos_s, u_s
+        self.pos = torch.as_tensor(pos_s, dtype=torch.int64, device=dev)
+        self.right = torch.as_tensor(right_s, dtype=torch.uint8, device=dev)
+        self.u = torch.as_tensor(u_s, dtype=torch.int32, device=dev)
+        self.lreq = torch.as_tensor(lreq_s, dtype=torch.int32, device=dev)
+        self.act = torch.ones(self.P, dtype=torch.uint8, device=dev)
+
+
+def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
+                  tier: Tier, n_total: int, exact_steps: int, pools):
+    """All search schemes over one flat per-block state POOL.
+
+    Every state carries its plan id.  On a fast tier the first
+    `exact_steps` steps — where every interval is still wide — run on the
+    exact two-row path and the rest on the one-row path, flagging still-wide
+    states (`far`).  The seeded prefix replaces the first exact steps of
+    every plan by one seed-table lookup.
+
+    Returns ((st [5, B, F], valid [B, F]), ovf_cap [B], ovf_far [B]):
+    capacity overflow and far flags are reported separately so the engine
+    can route far-only blocks to the same-size exact tier and capacity
+    overflows to a wider tier."""
+    dev = needles.device
+    P, T = sched.P, sched.T
+    S = T if tier.exact else min(T, exact_steps)
+    pools = np.asarray(pools, np.int64)
+
+    t_seed = 0
+    if index.has_seed:
+        t_seed = min(index.seed_t0, T)
+        while t_seed > 0 and sched.u_np[:t_seed].max() > 0:
+            t_seed -= 1
+    S = max(S, t_seed)
+    Fp = int(pools[t_seed]) if t_seed < T else int(pools[-1])
+
+    st = torch.zeros((5, B, Fp), dtype=torch.int32, device=dev)
+    st[4] = (torch.arange(Fp, dtype=torch.int32, device=dev) % P)[None, :]
+    ovf_cap = torch.zeros(B, dtype=torch.bool, device=dev)
+    ovf_far = torch.zeros(B, dtype=torch.bool, device=dev)
+    valid = torch.zeros((B, Fp), dtype=torch.uint8, device=dev)
+    if t_seed > 0:
+        # seed-table lookup: plain gathers (glue, as in the JAX package)
+        off = seed_level_offset(t_seed)
+        pw = torch.as_tensor(4 ** np.arange(t_seed - 1, -1, -1, dtype=np.int64),
+                             device=dev)
+        for p in range(P):
+            a_p = int(sched.pos_np[:t_seed, p].min())
+            w = needles[:, a_p : a_p + t_seed].to(torch.int64)  # [B, t_seed]
+            okw = (w < 4).all(dim=-1)
+            wc = w.clamp(max=3)
+            code = off + (wc * pw).sum(dim=-1)
+            rc_code = off + ((3 - wc) * pw.flip(0)).sum(dim=-1)
+            size = index.seed_size[code]
+            st[0, :, p] = index.seed_mlo[code]
+            st[1, :, p] = index.seed_mlo[rc_code]
+            st[2, :, p] = size
+            valid[:, p] = (okw & (size != 0)).to(torch.uint8)
+    else:
+        st[2, :, :P] = torch.tensor(n_total, dtype=torch.int64).to(torch.int32)
+        valid[:, :P] = 1
+
+    Fcur = Fp
+    for t in range(t_seed, T):
+        F = int(pools[t])
+        if F != Fcur:
+            st, valid, of = _resize(st, valid, F)
+            if of is not None:
+                ovf_cap |= of
+            Fcur = F
+        nch = needles.index_select(1, sched.pos[t])  # [B, P]
+        out, valid2, far = kernels.candidate_step(
+            index, st.view(5, B * F), valid.view(B * F), per_block=F, inner=F,
+            nch=nch, right=sched.right[t], act=sched.act, u=sched.u[t],
+            lreq=sched.lreq[t], exact=t < S,
+        )
+        A = out.shape[-1]
+        st, valid, of = _compact(out.view(5, B, F * A), valid2.view(B, F * A), F)
+        ovf_cap |= of
+        ovf_far |= far.view(B, F).bool().any(dim=-1)
+    return (st, valid), ovf_cap, ovf_far
+
+
+def _balanced_schedule(n_right, n_left, pos_right, pos_left):
+    """[T, M] (pos, right, act) arrays: slot m does its n_right[m] right
+    steps then its n_left[m] left steps, all slots in lockstep."""
+    M = len(n_right)
+    T = int(max(int(n_right[m] + n_left[m]) for m in range(M)) if M else 0)
+    pos = np.zeros((T, M), np.int32)
+    right = np.zeros((T, M), bool)
+    act = np.zeros((T, M), bool)
+    for m in range(M):
+        nr, nl = int(n_right[m]), int(n_left[m])
+        for t in range(nr):
+            pos[t, m] = pos_right[m][t]
+            right[t, m] = True
+            act[t, m] = True
+        for t in range(nl):
+            pos[nr + t, m] = pos_left[m][t]
+            act[nr + t, m] = True
+    return pos, right, act
+
+
+def _tree_levels(J: int, K: int) -> list:
+    """Binary doubling-split plan over the k-mer range [0, J).
+
+    Returns a list of levels; each level is (pmap, n_right, n_left,
+    pos_right, pos_left) describing how every child slot derives from its
+    parent (pmap) and which needle chars it consumes in each direction.
+    A node covering k-mers [a, b) holds the needle span [b-1, a+K);
+    splitting at m = (a+b)//2 extends the left child [a, m) LEFTWARD by b-m
+    chars and the right child [m, b) RIGHTWARD by m-a chars.  Size-1 nodes
+    pass through unchanged so the final leaf order is 0..J-1."""
+    levels = []
+    nodes = [(0, J)]
+    while any(b - a > 1 for a, b in nodes):
+        pmap, children = [], []
+        n_right, n_left, pos_right, pos_left = [], [], [], []
+        for i, (a, b) in enumerate(nodes):
+            if b - a == 1:
+                pmap.append(i)
+                children.append((a, b))
+                n_right.append(0)
+                n_left.append(0)
+                pos_right.append([])
+                pos_left.append([])
+            else:
+                m = (a + b) // 2
+                pmap.append(i)
+                children.append((a, m))
+                n_right.append(0)
+                n_left.append(b - m)
+                pos_right.append([])
+                pos_left.append([b - 2 - t for t in range(b - m)])
+                pmap.append(i)
+                children.append((m, b))
+                n_right.append(m - a)
+                n_left.append(0)
+                pos_right.append([a + K + t for t in range(m - a)])
+                pos_left.append([])
+        levels.append(
+            (np.asarray(pmap, np.int32), n_right, n_left, pos_right, pos_left)
+        )
+        nodes = children
+    if nodes != [(j, j + 1) for j in range(J)]:
+        raise AssertionError("doubling tree does not end at the J leaves")
+    return levels
+
+
+class _ExtensionLevel:
+    """Device-side tables of one doubling-tree level."""
+
+    def __init__(self, level, errors, dev):
+        pmap, n_right, n_left, pos_right, pos_left = level
+        pos, right, act = _balanced_schedule(n_right, n_left, pos_right, pos_left)
+        M = len(pmap)
+        self.M = M
+        self.T = len(pos)
+        self.pmap = torch.as_tensor(pmap, dtype=torch.int64, device=dev)
+        self.pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        self.right = torch.as_tensor(right, dtype=torch.uint8, device=dev)
+        self.act = torch.as_tensor(act, dtype=torch.uint8, device=dev)
+        self.u = torch.full((M,), errors, dtype=torch.int32, device=dev)
+        self.lreq = torch.zeros(M, dtype=torch.int32, device=dev)
+
+
+def _ext_phase(index, st, valid, ovf_cap, ovf_far, needles, lv: _ExtensionLevel,
+               exact):
+    """One mixed-direction extension scan over a [B, M, Fe] frontier; slots
+    may move in different directions in the same step and inactive slots
+    pass through."""
+    R, B, M, Fe = st.shape
+    for t in range(lv.T):
+        nch = needles.index_select(1, lv.pos[t])  # [B, M]
+        # left- and right-moving nodes share one launch: both directions
+        # read the same FMD rows
+        out, valid2, far = kernels.candidate_step(
+            index, st.view(R, -1), valid.view(-1), per_block=M * Fe,
+            inner=Fe, nch=nch, right=lv.right[t], act=lv.act[t], u=lv.u,
+            lreq=lv.lreq, exact=exact,
+        )
+        A = out.shape[-1]
+        st, valid, of = _compact(out.view(R, B * M, Fe * A),
+                                 valid2.view(B * M, Fe * A), Fe)
+        st = st.view(R, B, M, Fe)
+        valid = valid.view(B, M, Fe)
+        ovf_cap = ovf_cap | of.view(B, M).any(dim=-1)
+        ovf_far = ovf_far | far.view(B, M * Fe).bool().any(dim=-1)
+    return st, valid, ovf_cap, ovf_far
+
+
+def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
+    """Extend infix survivors to every k-mer window of each block along the
+    doubling tree (`_tree_levels`): ~2·log2(J) extension steps per k-mer,
+    left- and right-moving slots sharing each step.
+
+    Returns ((st [4, B, J, Fe], valid [B, J, Fe]), ovf_cap, ovf_far)."""
+    Fe = tier.f_extend
+    s_st, s_valid = survivors
+    # compact survivors into the root slots (node covering [0, J))
+    st, valid, ovf_cap = _compact(s_st[:4], s_valid, Fe)
+    st = st.view(4, B, 1, Fe)
+    valid = valid.view(B, 1, Fe)
+    ovf_far = torch.zeros(B, dtype=torch.bool, device=needles.device)
+    for lv in levels:
+        st = st.index_select(2, lv.pmap)
+        valid = valid.index_select(1, lv.pmap)
+        if lv.T:
+            st, valid, ovf_cap, ovf_far = _ext_phase(
+                index, st, valid, ovf_cap, ovf_far, needles, lv, tier.exact
+            )
+    return (st, valid), ovf_cap, ovf_far
+
+
+def _count_tail(index, states, cnt, J: int, cap: int, rev_compl: bool):
+    """Per-k-mer saturating counts [B, J] uint16 from the final states."""
+    st, valid = states
+    return kernels.count_tail(index, st.reshape(st.shape[0], -1),
+                              valid.reshape(-1), cnt, J, cap, rev_compl)
+
+
+class BlockMapper:
+    """The batch mapper of one configuration (port of `make_block_mapper`'s
+    non-probe, non-collect program).
+
+    Call with starts [B] int32 (uint32 global base positions), cnt [B] int32
+    (valid k-mers per block) and limit (exclusive end of the current file's
+    bases).  Returns dict(hits [B, J] uint16 clamped to cap, overflow [B]
+    bool, overflow_cap [B] bool) as device tensors.  The index holds both
+    strands, so one pass yields the combined forward + reverse-complement
+    frequency; rev_compl=False subtracts the reverse-strand occurrences
+    through the strand rank rows."""
+
+    def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
+                 errors: int, overlap: int, J: int, B: int, tier: Tier,
+                 cap: int, rev_compl: bool):
+        if overlap != K - J + 1:
+            raise ValueError(f"overlap {overlap} != K - J + 1 = {K - J + 1}")
+        if not 0 < cap <= 65535:
+            raise ValueError(
+                f"cap must be in [1, 65535] (uint16 result path), got {cap}"
+            )
+        dev = index.device
+        self.index, self.dtext = index, dtext
+        self.K, self.errors, self.J, self.B = K, errors, J, B
+        self.tier, self.cap, self.rev_compl = tier, cap, rev_compl
+        self.Ln = K + J - 1
+        plans = plans_for(errors, overlap)
+        infix_off = K - overlap
+        self.n_total = index.n_total
+        self.exact_steps = exact_prefix_steps(self.n_total, 64)
+        self.pools = infix_pool_schedule(plans, infix_off, self.n_total,
+                                         tier.f_search / 4.0)
+        self.sched = _InfixSchedule(plans, infix_off, dev)
+        self.levels = [_ExtensionLevel(lv, errors, dev) for lv in _tree_levels(J, K)]
+
+    def __call__(self, starts, cnt, limit):
+        B = starts.shape[0]
+        needles = extract_needles(self.dtext, starts, self.Ln, limit)
+        survivors, cap1, far1 = _search_infix(
+            self.index, self.sched, needles, B, self.tier, self.n_total,
+            self.exact_steps, self.pools,
+        )
+        states, cap2, far2 = _extend_to_kmers(
+            self.index, survivors, needles, self.levels, B, self.tier
+        )
+        hits = _count_tail(self.index, states, cnt, self.J, self.cap,
+                           self.rev_compl)
+        return dict(
+            hits=hits,
+            overflow=cap1 | far1 | cap2 | far2,
+            overflow_cap=cap1 | cap2,
+        )

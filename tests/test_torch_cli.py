@@ -1,0 +1,120 @@
+"""`genmap-tpu-torch index|map` against `genmap-tpu index|map`, byte for byte.
+
+The FASTA is generated here from a numpy seed.  The port maps with
+`--device cpu` (the kernels' plain versions); the JAX CLI runs on the CPU as
+tests/conftest.py sets it up.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from genmap_tpu.cli.main import main as jax_main
+from genmap_tpu_torch.cli.main import main as torch_main
+
+torch.set_num_threads(1)
+
+_ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
+
+
+def _write_fasta(path, seed=5):
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, 4, 90)
+    chroms = {
+        "chr1 first chromosome": np.concatenate(
+            [rng.integers(0, 4, 700), np.tile(unit, 5), rng.integers(0, 4, 300)]),
+        "chr2": np.concatenate([rng.integers(0, 4, 400), np.full(25, 4),
+                                rng.integers(0, 5, 350)]),
+        "chr3": rng.integers(0, 4, 60),
+    }
+    with open(path, "w") as f:
+        for name, codes in chroms.items():
+            s = _ACGTN[codes].tobytes().decode()
+            f.write(f">{name}\n")
+            for i in range(0, len(s), 70):
+                f.write(s[i : i + 70] + "\n")
+
+
+def _tree(d):
+    out = {}
+    for dirpath, _dirs, files in os.walk(d):
+        for fn in files:
+            p = os.path.join(dirpath, fn)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, d)] = f.read()
+    return out
+
+
+@pytest.fixture(scope="module")
+def indexes(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    fa = str(root / "genome.fa")
+    _write_fasta(fa)
+    jidx, tidx = str(root / "jidx"), str(root / "tidx")
+    assert jax_main(["index", "-F", fa, "-I", jidx, "-S", "4"]) == 0
+    assert torch_main(["index", "-F", fa, "-I", tidx, "-S", "4"]) == 0
+    return root, jidx, tidx
+
+
+def test_index_directory_is_byte_equal(indexes):
+    _root, jidx, tidx = indexes
+    j, t = _tree(jidx), _tree(tidx)
+    assert sorted(j) == sorted(t)
+    for name in j:
+        assert j[name] == t[name], name
+
+
+_FLAG_SETS = {
+    "mappability_all_formats": ["-K", "20", "-E", "2", "-r", "-t", "-w", "-bg", "-b"],
+    "freq_small": ["-K", "20", "-E", "2", "-fs", "-r", "-t"],
+    "freq_large_nc": ["-K", "20", "-E", "2", "-fl", "-nc", "-r", "-bg", "-w"],
+    "selection": ["-K", "20", "-E", "2", "-t", "-w", "-b", "-S", "{bed}"],
+}
+
+
+@pytest.mark.parametrize("flags", sorted(_FLAG_SETS))
+def test_map_outputs_are_byte_equal(indexes, flags):
+    root, jidx, tidx = indexes
+    bed = root / "sel.bed"
+    bed.write_text("chr1\t5\t400\nchr2\t380\t600\nchr1\t900\t960\n")
+    argv = [a.replace("{bed}", str(bed)) for a in _FLAG_SETS[flags]]
+    jout, tout = root / f"j_{flags}", root / f"t_{flags}"
+    jout.mkdir()
+    tout.mkdir()
+    assert jax_main(["map", "-I", jidx, "-O", str(jout), *argv]) == 0
+    assert torch_main(["map", "-I", tidx, "-O", str(tout), *argv, "--device", "cpu"]) == 0
+    j, t = _tree(jout), _tree(tout)
+    assert j and sorted(j) == sorted(t)
+    for name in j:
+        assert j[name] == t[name], name
+
+
+def test_unported_flags_fail_loudly(indexes, capsys):
+    root, _jidx, tidx = indexes
+    out = root / "t_unported"
+    out.mkdir()
+    for flag in ("-d", "-ep"):
+        rc = torch_main(["map", "-I", tidx, "-O", str(out), "-K", "20", "-t",
+                         flag, "--device", "cpu"])
+        assert rc == 1
+        assert "not yet ported" in capsys.readouterr().err
+    assert not list(out.iterdir())
+
+
+def test_multipart_index_fails_loudly(tmp_path, capsys):
+    from genmap_tpu_torch.index.build import build_index
+    from genmap_tpu_torch.io.fasta import FastaFile
+
+    rng = np.random.default_rng(1)
+    ff = FastaFile(name="g.fa")
+    ff.ids = ["a", "b", "c"]
+    ff.seqs = [rng.integers(0, 4, 90, dtype=np.uint8) for _ in range(3)]
+    data = build_index([ff], sampling=3, max_part_symbols=200)
+    assert len(data.parts) >= 2
+    data.save(str(tmp_path / "idx"))
+    rc = torch_main(["map", "-I", str(tmp_path / "idx"), "-O", str(tmp_path) + "/",
+                     "-K", "10", "-t", "--device", "cpu"])
+    assert rc == 1
+    assert "not yet ported" in capsys.readouterr().err

@@ -1,0 +1,171 @@
+"""CUDA kernels of genmap_tpu_torch against their plain PyTorch versions.
+
+Every case needs a card and is marked `cuda`; without one it skips.  The
+module imports neither jax nor genmap_tpu, so it also runs where only the
+port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+All arithmetic is integer, so every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from genmap_tpu_torch import kernels
+from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
+from genmap_tpu_torch.index.build import build_index
+from genmap_tpu_torch.io.fasta import FastaFile
+from genmap_tpu_torch.ops import rank
+from genmap_tpu_torch.search.engine import Tier
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _genome(alpha, n=6000, seed=0):
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, 4, size=300, dtype=np.uint8)
+    seq = np.concatenate([rng.integers(0, 4, size=n, dtype=np.uint8),
+                          np.tile(unit, 6), rng.integers(0, 4, size=n // 2, dtype=np.uint8)])
+    if alpha == 5:
+        seq[100:140] = 4
+        seq[rng.integers(0, len(seq), 30)] = 4
+    return [seq, rng.integers(0, 4, size=n // 3, dtype=np.uint8)]
+
+
+_DATA = {}
+
+
+def _data(alpha):
+    if alpha not in _DATA:
+        ff = FastaFile(name="g.fa")
+        ff.seqs = _genome(alpha)
+        ff.ids = [f"s{i}" for i in range(len(ff.seqs))]
+        _DATA[alpha] = build_index([ff], sampling=4)
+    return _DATA[alpha]
+
+
+def _indexes(alpha, cuda):
+    data = _data(alpha)
+    part = data.parts[0]
+    gi = rank.DeviceIndex.from_part(data, part, light=True, device=cuda)
+    ci = rank.DeviceIndex.from_part(data, part, light=True, device="cpu")
+    return data, gi, ci
+
+
+def _eq(a, b):
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_seed_tables_and_needles(cuda, alpha):
+    data, gi, ci = _indexes(alpha, cuda)
+    _eq(gi.seed_mlo, ci.seed_mlo)
+    _eq(gi.seed_size, ci.seed_size)
+    rng = np.random.default_rng(1)
+    starts = rng.integers(0, data.text_len, 300).astype(np.uint32).view(np.int32)
+    gt = rank.DeviceText.from_host(data, cuda)
+    ct = rank.DeviceText.from_host(data, "cpu")
+    for Ln, limit in ((37, data.text_len), (149, data.text_len - 500)):
+        s = torch.from_numpy(starts)
+        _eq(rank.extract_needles(gt, s.to(cuda), Ln, limit),
+            rank.extract_needles(ct, s, Ln, limit))
+
+
+def _states(rng, n_total, N, R, P, wide):
+    mlo = rng.integers(0, n_total, N)
+    top = 5000 if wide else 600
+    size = np.minimum(rng.integers(1, top, N), n_total - mlo)
+    st = np.stack([
+        mlo, rng.integers(0, n_total, N), size, rng.integers(0, 3, N),
+        rng.integers(0, P, N),
+    ])[:R].astype(np.int64)
+    valid = (rng.random(N) < 0.8).astype(np.uint8)
+    return torch.from_numpy(st.astype(np.uint32).view(np.int32)), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("exact", [True, False])
+def test_candidate_step(cuda, alpha, exact):
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(2 + alpha)
+    B = 64
+    for R, per_block, inner, G in ((5, 16, 16, 3), (4, 6 * 4, 4, 6)):
+        N = B * per_block
+        st, valid = _states(rng, gi.n_total, N, R, G, wide=not exact)
+        nch = torch.from_numpy(rng.integers(0, 5, (B, G)).astype(np.uint8))
+        right = torch.from_numpy(rng.integers(0, 2, G).astype(np.uint8))
+        act = torch.from_numpy((rng.random(G) < 0.7).astype(np.uint8))
+        u = torch.from_numpy(rng.integers(0, 4, G).astype(np.int32))
+        lreq = torch.from_numpy(rng.integers(0, 2, G).astype(np.int32))
+        args = dict(per_block=per_block, inner=inner, exact=exact)
+        ref = kernels.candidate_step(ci, st, valid, nch=nch, right=right,
+                                     act=act, u=u, lreq=lreq, **args)
+        got = kernels.candidate_step(
+            gi, st.to(cuda), valid.to(cuda), nch=nch.to(cuda),
+            right=right.to(cuda), act=act.to(cuda), u=u.to(cuda),
+            lreq=lreq.to(cuda), **args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        if not exact:
+            assert ref[2].any()  # the far path was exercised
+
+
+@pytest.mark.parametrize("R,rows,M,F", [
+    (5, 300, 16, 4), (4, 300, 16, 1), (4, 100, 40, 8), (5, 50, 256, 64),
+    (4, 20, 1000, 300), (4, 30, 7, 16),
+])
+def test_compact(cuda, R, rows, M, F):
+    rng = np.random.default_rng(rows + M + F)
+    arr = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, rows, M)).astype(np.int32))
+    valid = torch.from_numpy((rng.random((rows, M)) < rng.random((rows, 1))).astype(np.uint8))
+    ref = kernels.compact(arr, valid, F)
+    got = kernels.compact(arr.to(cuda), valid.to(cuda), F)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("rev_compl", [True, False])
+@pytest.mark.parametrize("cap", [255, 65535])
+def test_count_tail(cuda, alpha, rev_compl, cap):
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(cap + alpha)
+    B, J = 40, 7
+    for Fe in (1, 4, 64):
+        N = B * J * Fe
+        st, valid = _states(rng, gi.n_total, N, 4, 1, wide=True)
+        cnt = torch.from_numpy(rng.integers(0, J + 1, B).astype(np.int32))
+        ref = kernels.count_tail(ci, st, valid, cnt, J, cap, rev_compl)
+        got = kernels.count_tail(gi, st.to(cuda), valid.to(cuda), cnt.to(cuda),
+                                 J, cap, rev_compl)
+        torch.cuda.synchronize()
+        _eq(got, ref)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_engine_cuda_equals_cpu(cuda, alpha):
+    data = _data(alpha)
+    tiers = (Tier(4, 4, 1, exact=False), Tier(4, 4, 1), Tier(32, 64, 8),
+             Tier(256, 512, 64))
+    ge = MappabilityEngine(data, batch_blocks=64, tiers=tiers, device=cuda)
+    ce = MappabilityEngine(data, batch_blocks=64, tiers=tiers, device="cpu")
+    for K, e, o, rc in ((12, 0, 8, True), (16, 1, 10, False), (20, 2, 12, True)):
+        params = SearchParams(length=K, overlap=o, rev_compl=rc)
+        lay = ge.layouts[0]
+        kernels.reset_launches()
+        g = ge.compute_file(lay, params, e, 255)
+        counts = kernels.launch_counts()
+        c = ce.compute_file(ce.layouts[0], params, e, 255)
+        np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e}")
+        assert all(n > 0 for n in counts.values()), counts
