@@ -10,18 +10,24 @@ or of the JAX package.  Phases (any failure exits non-zero):
 
   1. build   every CUDA kernel of the port from csrc/ (one nvcc per source,
              in parallel)
-  2. kernels on a ~1 Mbp genome-like Dna5 index, one (100,2) batch of
-             B=1024 blocks runs through the block mapper while each kernel's
-             calls are recorded; every recorded call is re-run through the
-             kernel and through its plain PyTorch version on the card and
-             must agree exactly, and the busiest call of each kernel is timed
-             (CUDA events) beside its plain version, its byte bound and,
-             where one PyTorch call computes the same function, that call
+  2. dna5    on a ~1 Mbp genome-like Dna5 index (A = 5 candidates), one
+             (100,2) batch of B=1024 blocks runs through the block mapper;
+             every kernel call is also computed by its plain PyTorch version
+             on the card and must agree exactly
   3. main    `genmap-tpu-torch index` of a 12.07 Mbp genome-like genome laid
-             out as S. cerevisiae's 16 nuclear chromosomes, then
+             out as S. cerevisiae's 16 nuclear chromosomes (Dna4), then
              `genmap-tpu-torch map -K 100 -E 2` of the whole genome on the
-             card; every kernel's launch counter must be > 0 after it
-  4. check   the same map on the CPU (plain PyTorch path) for a BED selection
+             card, four times:
+             - a checked run: every kernel call of the seed-table build and
+               of the first batch of each tier is held against its plain
+               version (exactly), and that batch is profiled
+             - three timed runs: launch counters set to 0 just before and
+               read just after each; every kernel must have launched; the
+               k-mers/s figure is their median
+  4. kernels the largest checked call of each kernel is timed on the card
+             (kernel, plain version, library call where one exists) beside
+             its bound
+  5. check   the same map on the CPU (plain PyTorch path) for a BED selection
              of >= 20,000 k-mers spread over the genome, half of them in
              repeat-rich windows; frequencies must equal the card's exactly
 
@@ -31,6 +37,7 @@ limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -54,8 +61,10 @@ YEAST_CHROMS = (
     ("chrXIII", 924431), ("chrXIV", 784333), ("chrXV", 1091291), ("chrXVI", 948066),
 )
 K, E = 100, 2
-KERNEL_BP = 1_000_000  # Dna5 index of the kernel phase
-B_KERNEL = 1024  # blocks in the kernel phase's (100,2) batch
+DNA5_BP = 1_000_000  # Dna5 index of phase 2
+B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
+TIMED_RUNS = 3
+NAMES = ("extract_needles", "candidate_step", "compact", "count_tail")
 _ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
@@ -63,21 +72,39 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of fn() in ms (CUDA events around `reps` calls)."""
+_FLUSH = []
+
+
+def device_ms(fn, reps: int = 10, cold: bool = True) -> float:
+    """Median device time of one fn() call, in ms (CUDA events around it).
+
+    Each call is queued behind device work of ~0.1 ms, so that its launches
+    are enqueued before the device reaches the start event and the host's
+    issue time is not counted.  cold=True: that work writes 256 MiB, which
+    evicts the 50 MB L2, so fn reads its inputs from HBM; cold=False: it
+    spins without touching memory, and fn finds in L2 what the previous call
+    left there.  A function that synchronises inside (the plain versions) is
+    timed with that host time included."""
     import torch
 
-    for _ in range(warm):
-        fn()
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    ev = []
     for _ in range(reps):
+        if cold:
+            _FLUSH[0].zero_()
+        else:
+            torch.cuda._sleep(200_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+        e1.record()
+        ev.append((e0, e1))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
 def max_abs_err(got, want) -> int:
@@ -124,7 +151,7 @@ def yeast_like_genome():
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions at main-path shapes
+# kernel calls against their plain versions, batch profiles
 # ---------------------------------------------------------------------------
 
 
@@ -153,190 +180,250 @@ def profile_batch(run, label: str) -> None:
         if us > 0:
             dev.append((us / 1e3, ev.count, ev.key))
     if not dev:
-        log(f"profile: one {label} batch: wall {wall_ms:.2f} ms; device time not measured")
+        log(f"profile: {label}: wall {wall_ms:.2f} ms; device time not measured")
         return
     dev_ms = sum(d[0] for d in dev)
-    log(f"profile: one {label} batch: wall {wall_ms:.2f} ms, device busy "
-        f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}% of wall, "
-        f"{sum(d[1] for d in dev)} device ops)")
-    for ms_, n, key in sorted(dev, reverse=True)[:8]:
-        log(f"profile:   {ms_:8.3f} ms {n:6d}x {key[:90]}")
+    log(f"profile: {label}: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+        f"({100 * dev_ms / wall_ms:.1f}% of wall, {sum(d[1] for d in dev)} device ops)")
+    for ms_, n, key in sorted(dev, reverse=True)[:6]:
+        log(f"profile:   {ms_:8.3f} ms {n:6d}x ({1e3 * ms_ / n:.1f} us each) {key[:80]}")
 
 
-class _Recorder:
-    """Records every call of the kernel wrappers made through the engine."""
-
-    NAMES = ("extract_needles", "candidate_step", "compact", "count_tail")
+class _Checker:
+    """While `on`, every call of a kernel wrapper made through the engine is
+    also computed by the kernel's plain version (`kernels.<name>_plain`) on
+    the same inputs and must agree exactly; the largest call of each kernel
+    seen while `keep` is set is kept for timing."""
 
     def __init__(self, kernels):
         self.kernels = kernels
-        self.calls = {n: [] for n in self.NAMES}
+        self.on, self.keep, self.phase = False, False, ""
+        self.calls = {n: 0 for n in NAMES}
+        self.err = {n: 0 for n in NAMES}
+        self.variants = {n: set() for n in NAMES}
+        self.largest = {n: None for n in NAMES}
         self.orig = {}
 
     def __enter__(self):
-        for n in self.NAMES:
+        for n in NAMES:
             orig = getattr(self.kernels, n)
             self.orig[n] = orig
+            sig = inspect.signature(orig)
 
-            def rec(*a, _n=n, _orig=orig, **kw):
-                self.calls[_n].append((a, kw))
-                return _orig(*a, **kw)
+            def wrapper(*a, _n=n, _orig=orig, _sig=sig, **kw):
+                got = _orig(*a, **kw)
+                if self.on:
+                    self._check(_n, _sig.bind(*a, **kw).arguments, got)
+                return got
 
-            setattr(self.kernels, n, rec)
+            setattr(self.kernels, n, wrapper)
         return self
 
     def __exit__(self, *exc):
         for n, f in self.orig.items():
             setattr(self.kernels, n, f)
 
+    def _check(self, name, args, got):
+        want = getattr(self.kernels, f"{name}_plain")(**args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(got, want)
+        self.calls[name] += 1
+        self.err[name] = max(self.err[name], err)
+        self.variants[name].add(variant(name, args))
+        if err:
+            raise AssertionError(f"{name} differs from its plain version in "
+                                 f"{self.phase} (max abs err {err}, "
+                                 f"{variant(name, args)})")
+        size = sum(x.numel() for x in args.values() if hasattr(x, "numel"))
+        if self.keep and (self.largest[name] is None or size > self.largest[name][0]):
+            self.largest[name] = (size, args, self.phase)
 
-def kernel_phase(dev):
+
+def variant(name, args) -> str:
+    if name == "extract_needles":
+        return f"B={args['starts'].shape[0]} Ln={args['Ln']} N-mask={args['nwords'].numel() > 0}"
+    if name == "candidate_step":
+        return (f"A={args['index'].nchars} R={args['st'].shape[0]} "
+                f"{'exact' if args['exact'] else 'fast'}")
+    if name == "compact":
+        return f"M={args['arrays'].shape[2]} F={args['F']}"
+    N = args["valid"].numel()
+    return f"Fe={N // (args['cnt'].numel() * args['J'])} rc={args['rev_compl']}"
+
+
+def kernel_work(name, args):
+    """(bytes, operations, shape, row reads) of one call: each input byte
+    that these inputs need read once (validity flags of every slot, the
+    operands of valid slots only) and each output byte written once; row
+    reads are the candidate step's per-state rank-row reads."""
     import torch
 
     from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    if name == "extract_needles":
+        Bn, Ln = args["starts"].shape[0], args["Ln"]
+        nbytes = (Bn * 4 + Bn * Ln + Bn * ((Ln + 15) // 16 + 1) * 4
+                  + (Bn * ((Ln + 31) // 32 + 1) * 4 if args["nwords"].numel() else 0))
+        nops = 10 * Bn * Ln  # index, shift, mask, N test per symbol
+        return nbytes, nops, f"B={Bn} Ln={Ln}", 0
+    if name == "candidate_step":
+        ix, st, valid = args["index"], args["st"], args["valid"]
+        R, N = st.shape
+        A = ix.nchars
+        G = args["right"].shape[0]
+        _blk, g = kernels._state_groups(st, args["per_block"], args["inner"], G)
+        active = args["act"].bool()[g]
+        work = valid.bool() & active
+        nwork = int(work.sum())
+        n_idle = N - int(active.sum())  # pass through: every row copied
+        r = args["right"].bool()[g]
+        mlo = torch.where(r, rank.u32(st[1]), rank.u32(st[0]))[work]
+        hi = (mlo + rank.u32(st[2])[work]) & rank.MASK32
+        if args["exact"]:  # first half of the row at each bound
+            addr = torch.cat([mlo >> 9, hi >> 9]) * 2
+        else:  # the row at mlo; its second half when hi lies past it
+            q = mlo >> 9
+            addr = torch.cat([q * 2, (q * 2 + 1)[(hi >> 9) > q]])
+        n_reads = int(addr.numel())
+        n_rows = int(torch.unique(addr).numel())
+        subw = sub_width(ix.has_n)
+        nbytes = (N + (4 * N if R == 5 else 0)  # validity, plan ids
+                  + 4 * (4 * nwork + (R - (R == 5)) * n_idle)  # state rows
+                  + n_rows * subw * 4  # distinct rank sub-rows
+                  + R * N * A * 4 + N * A + N)  # outputs
+        # per bound: 32 code words x (3 popcounts + ~7 mask ops) and two
+        # 16-word bitvectors x 4 ops; then ~20 ops per candidate
+        nops = nwork * (2 * (32 * 10 + 2 * 16 * 4) + 20 * A)
+        shape = (f"N={N} states ({nwork} valid) R={R} A={A} "
+                 f"{'exact' if args['exact'] else 'fast'}, {n_reads} sub-row reads "
+                 f"of {n_rows} distinct sub-rows")
+        return nbytes, nops, shape, n_reads
+    if name == "compact":
+        R, nrows, M = args["arrays"].shape
+        F = args["F"]
+        kept = int(args["valid"].bool().sum(dim=-1).clamp(max=F).sum())
+        nbytes = nrows * M + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
+        nops = 6 * nrows * M  # ballot, rank popcount, compare per slot
+        return nbytes, nops, f"R={R} rows={nrows} M={M} F={F}", 0
+    cnt, J = args["cnt"], args["J"]
+    N = args["valid"].numel()
+    nvalid = int(args["valid"].sum())
+    nbytes = (N + 2 * nvalid * 4 + cnt.numel() * 4 + cnt.numel() * J * 2
+              + (0 if args["rev_compl"] else 2 * nvalid * 20))
+    nops = 6 * N + (0 if args["rev_compl"] else 30 * nvalid)
+    return nbytes, nops, f"B={cnt.numel()} J={J} Fe={N // (cnt.numel() * J)} valid={nvalid}", 0
+
+
+def library_fn(name, args):
+    """One PyTorch call computing the same function, where there is one."""
+    import torch
+
+    if name != "compact":
+        return None
+    arrays, valid, F = args["arrays"], args["valid"], args["F"]
+    R = arrays.shape[0]
+
+    def library():  # stable sort on the validity key + gather
+        order = torch.sort((valid == 0).to(torch.uint8), dim=-1, stable=True).indices
+        idx = order[:, :F].unsqueeze(0).expand(R, -1, -1)
+        return torch.gather(arrays, 2, idx)
+
+    return library
+
+
+def time_kernels(checker):
+    """Phase 4: the largest checked main-path call of each kernel, timed."""
+    from genmap_tpu_torch import kernels
+
+    rows = []
+    for name in NAMES:
+        if checker.largest[name] is None:
+            raise AssertionError(f"{name}: no main-path call was checked")
+        _size, args, phase = checker.largest[name]
+        wrapper = checker.orig[name]
+        plain = getattr(kernels, f"{name}_plain")
+        ms = device_ms(lambda: wrapper(**args))
+        warm_ms = device_ms(lambda: wrapper(**args), cold=False)
+        plain_ms = device_ms(lambda: plain(**args), reps=5)
+        lib = library_fn(name, args)
+        library_ms = device_ms(lib) if lib is not None else None
+        nbytes, nops, shape, n_reads = kernel_work(name, args)
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = nops / H100_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"kernel {name}: {checker.calls[name]} checked calls equal to plain "
+            f"(variants: {', '.join(sorted(checker.variants[name]))}); largest, "
+            f"in {phase}: {shape}: {ms:.4f} ms with L2 flushed, {warm_ms:.4f} ms "
+            f"warm (plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
+            f"{nbytes} B, {nops} ops"
+            + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
+            + ")" + (f" rows_per_s={n_reads / (ms * 1e-3):.3e} flushed, "
+                     f"{n_reads / (warm_ms * 1e-3):.3e} warm" if n_reads else ""))
+        rows.append(dict(
+            name=name, route="cuda", source=f"genmap_tpu_torch/csrc/{kernels.KERNELS[name].source}",
+            replaces=kernels.KERNELS[name].replaces, launches=0,
+            max_abs_err=checker.err[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        ))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the Dna5 batch
+# ---------------------------------------------------------------------------
+
+
+def dna5_phase(dev, checker):
+    import torch
+
+    from genmap_tpu_torch.cli.map_cmd import default_overlap
     from genmap_tpu_torch.corpus import make_genomelike
     from genmap_tpu_torch.index.build import build_index
-    from genmap_tpu_torch.index.fmindex import sub_width
     from genmap_tpu_torch.io.fasta import FastaFile
     from genmap_tpu_torch.ops import rank
     from genmap_tpu_torch.search.engine import DEFAULT_TIERS, BlockMapper
 
     t = time.perf_counter()
     rng = np.random.default_rng(SEED + 1)
-    seq = make_genomelike(KERNEL_BP, seed=SEED + 1)
+    seq = make_genomelike(DNA5_BP, seed=SEED + 1)
     for s in rng.integers(0, len(seq) - 2000, 40):  # N runs (Dna5)
         seq[s : s + int(rng.integers(10, 1500))] = 4
-    ff = FastaFile(name="kernels.fa")
+    ff = FastaFile(name="dna5.fa")
     ff.ids, ff.seqs = ["chrK"], [seq]
     data = build_index([ff], sampling=10)
     index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=dev)
     text = rank.DeviceText.from_host(data, dev)
-    log(f"kernels: {KERNEL_BP} bp Dna5 index built and uploaded in "
+    log(f"dna5: {DNA5_BP} bp Dna5 index built and uploaded in "
         f"{time.perf_counter() - t:.2f} s")
-
-    # one (100,2) batch of B=1024 blocks at the CLI's default overlap
-    from genmap_tpu_torch.cli.map_cmd import default_overlap
 
     x = min(default_overlap(K, E), min(K - 1, K - E - 2))
     o = K - x
     J = K - o + 1
-    B = B_KERNEL
     nk = data.text_len - K + 1
-    starts = np.sort(rng.choice(np.arange(0, nk - J, J), B, replace=False))
-    cnt = torch.full((B,), J, dtype=torch.int32, device=dev)
+    starts = np.sort(rng.choice(np.arange(0, nk - J, J), B_DNA5, replace=False))
+    cnt = torch.full((B_DNA5,), J, dtype=torch.int32, device=dev)
     st_t = torch.from_numpy(starts.astype(np.uint32).view(np.int32)).to(dev)
-    mapper = BlockMapper(index, text, K=K, errors=E, overlap=o, J=J, B=B,
+    mapper = BlockMapper(index, text, K=K, errors=E, overlap=o, J=J, B=B_DNA5,
                          tier=DEFAULT_TIERS[0], cap=65535, rev_compl=True)
-    with _Recorder(kernels) as rec:
+    before = dict(checker.calls)
+    checker.on, checker.phase = True, f"the Dna5 (100,2) B={B_DNA5} batch"
+    try:
         mapper(st_t, cnt, data.text_len)
-    torch.cuda.synchronize()
-    profile_batch(lambda: mapper(st_t, cnt, data.text_len), f"(100,2) B={B}")
-
-    plain = {
-        "extract_needles": rank.extract_needles_plain,
-        "candidate_step": kernels.candidate_step_plain,
-        "compact": kernels.compact_plain,
-        "count_tail": kernels.count_tail_plain,
-    }
-    rows = []
-    subw = sub_width(index.has_n)
-    for name in _Recorder.NAMES:
-        calls = rec.calls[name]
-        if not calls:
-            raise AssertionError(f"{name}: the block mapper made no call")
-        err = 0
-        for a, kw in calls:  # every recorded call: kernel == plain, exactly
-            got = getattr(kernels, name)(*a, **kw)
-            want = plain[name](*a, **kw)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(err, max_abs_err(got, want))
         torch.cuda.synchronize()
-        if err:
-            raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max abs err {err})")
-        # the busiest call of the batch is timed
-        def size_of(c):
-            a, _kw = c
-            return max(x.numel() for x in a if isinstance(x, torch.Tensor))
-
-        a, kw = max(calls, key=size_of)
-        ms = cuda_ms(lambda: getattr(kernels, name)(*a, **kw))
-        plain_ms = cuda_ms(lambda: plain[name](*a, **kw), reps=5, warm=1)
-        library_ms = None
-        extra = ""
-        if name == "extract_needles":
-            words, nwords, starts_, Ln = a[0], a[1], a[2], a[3]
-            Bn = starts_.shape[0]
-            nbytes = (Bn * 4 + Bn * Ln + Bn * ((Ln + 15) // 16 + 1) * 4
-                      + (Bn * ((Ln + 31) // 32 + 1) * 4 if nwords.numel() else 0))
-            nops = 10 * Bn * Ln  # index, shift, mask, N test per symbol
-            shape = f"B={Bn} Ln={Ln}"
-        elif name == "candidate_step":
-            ix, st, valid = a
-            R, N = st.shape
-            A = ix.nchars
-            G = kw["right"].shape[0]
-            i = torch.arange(N, device=dev)
-            g = (st[4].long() if R == 5 else (i % kw["per_block"]) // kw["inner"]).clamp(0, G - 1)
-            work = valid.bool() & kw["act"].bool()[g]
-            nwork = int(work.sum())
-            if kw["exact"]:
-                n_sub = 2 * nwork
-            else:
-                r = kw["right"].bool()[g]
-                mlo = torch.where(r, rank.u32(st[1]), rank.u32(st[0]))
-                hi = mlo + rank.u32(st[2])
-                n_sub = nwork + int((work & ((hi >> 9) > (mlo >> 9))).sum())
-            nbytes = (R * N * 4 + N + n_sub * subw * 4  # states, rows read
-                      + R * N * A * 4 + N * A + N)  # outputs
-            # per bound: 32 code words x (3 popcounts + ~7 mask ops) and two
-            # 16-word bitvectors x 4 ops; then ~20 ops per candidate
-            nops = nwork * (2 * (32 * 10 + 2 * 16 * 4) + 20 * A)
-            shape = (f"N={N} states ({nwork} valid) R={R} A={A} "
-                     f"exact={kw['exact']} rows={n_sub}")
-            extra = f" rows_per_s={n_sub / (ms * 1e-3):.3e}"
-        elif name == "compact":
-            arrays, valid, F = a
-            R, nrows, M = arrays.shape
-            nbytes = R * nrows * M * 4 + nrows * M + R * nrows * F * 4 + nrows * F + nrows
-            nops = 6 * nrows * M  # ballot, rank popcount, compare per slot
-
-            def library():  # stable sort on the validity key + gather
-                order = torch.sort((valid == 0).to(torch.uint8), dim=-1, stable=True).indices
-                idx = order[:, :F].unsqueeze(0).expand(R, -1, -1)
-                return torch.gather(arrays, 2, idx)
-
-            library_ms = cuda_ms(library)
-            shape = f"R={R} rows={nrows} M={M} F={F}"
-        else:  # count_tail
-            ix, st, valid, cnt_, Jc, cap_, rc_ = a
-            N = valid.numel()
-            nvalid = int(valid.sum())
-            nbytes = (2 * N * 4 + N + cnt_.numel() * 4 + cnt_.numel() * Jc * 2
-                      + (0 if rc_ else 2 * nvalid * 20))
-            nops = 6 * N + (0 if rc_ else 30 * nvalid)
-            shape = f"B={cnt_.numel()} J={Jc} Fe={N // (cnt_.numel() * Jc)} valid={nvalid}"
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        ops_ms = nops / H100_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"kernel {name}: {len(calls)} calls in one (100,2) B={B} batch, all equal "
-            f"to plain; busiest call {shape}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms by {bound_by}: {nbytes} B, {nops} ops"
-            + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
-            + f"){extra}")
-        rows.append(dict(
-            name=name, route="cuda", source=f"genmap_tpu_torch/csrc/{kernels.KERNELS[name].source}",
-            replaces=kernels.KERNELS[name].replaces, launches=0, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms,
-        ))
-    return rows
+    finally:
+        checker.on = False
+    n = {k: checker.calls[k] - before[k] for k in NAMES}
+    log(f"dna5: one (100,2) B={B_DNA5} batch: kernel calls equal to plain {n}")
+    if min(n.values()) == 0:
+        raise AssertionError(f"the Dna5 batch did not call every kernel: {n}")
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the main path through the CLI, and the CPU cross-check
+# phases 3 and 5: the main path through the CLI, and the CPU cross-check
 # ---------------------------------------------------------------------------
 
 
@@ -363,7 +450,50 @@ def selection(chroms, gpu_freq, want=24_000, win=500):
     return wins, cum
 
 
-def main_path(dev, work):
+def checked_map(idx, out, checker) -> None:
+    """The map with every kernel call of the seed-table build and of the
+    first batch of each tier held against its plain version; that batch is
+    profiled first."""
+    from genmap_tpu_torch.cli.map_cmd import map_main
+    from genmap_tpu_torch.engine.mappability import MappabilityEngine
+
+    orig = MappabilityEngine._run_batch
+    seen = set()
+
+    def run_batch(self, run, layout, bstarts, bcnts, B):
+        if id(run) in seen:
+            checker.on = False
+            return orig(self, run, layout, bstarts, bcnts, B)
+        seen.add(id(run))
+        t = run.tier
+        label = (f"first batch of tier(f_search={t.f_search}, f_extend={t.f_extend}, "
+                 f"exact={t.exact}) B={B} ({len(bstarts)} blocks)")
+        checker.on = False
+        profile_batch(lambda: orig(self, run, layout, bstarts, bcnts, B), label)
+        checker.on, checker.keep, checker.phase = True, True, label
+        try:
+            return orig(self, run, layout, bstarts, bcnts, B)
+        finally:
+            checker.on = checker.keep = False
+
+    MappabilityEngine._run_batch = run_batch
+    checker.on, checker.phase = True, "the seed-table build"
+    before = dict(checker.calls)
+    t = time.perf_counter()
+    try:
+        rc = map_main(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
+                       "-fl", "-r", "--device", "cuda"])
+    finally:
+        MappabilityEngine._run_batch = orig
+        checker.on = checker.keep = False
+    if rc != 0:
+        raise AssertionError(f"checked map exited {rc}")
+    n = {k: checker.calls[k] - before[k] for k in NAMES}
+    log(f"main: checked map ({len(seen)} tier programs) in "
+        f"{time.perf_counter() - t:.2f} s: kernel calls equal to plain {n}")
+
+
+def main_path(dev, work, checker):
     import torch
 
     from genmap_tpu_torch import kernels
@@ -372,54 +502,71 @@ def main_path(dev, work):
 
     t = time.perf_counter()
     chroms = yeast_like_genome()
+    n_bp = sum(len(c) for _, c in chroms)
     fa = os.path.join(work, "yeastlike.fa")
     write_fasta(fa, chroms)
-    log(f"main: {sum(len(c) for _, c in chroms)} bp genome-like genome "
-        f"({len(chroms)} chromosomes) written in {time.perf_counter() - t:.2f} s")
+    log(f"main: {n_bp} bp genome-like genome ({len(chroms)} chromosomes) written "
+        f"in {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     idx = os.path.join(work, "idx")
     if cli_main(["index", "-F", fa, "-I", idx]) != 0:
         raise AssertionError("genmap-tpu-torch index failed")
     log(f"main: index built in {time.perf_counter() - t:.2f} s")
 
-    gout = os.path.join(work, "gpu")
-    os.makedirs(gout)
-    on_card = dev.type == "cuda"
-    if on_card:
+    def freq_of(out):
+        f = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+        if f.shape[0] != n_bp:
+            raise AssertionError("frequency vector has the wrong length")
+        return f
+
+    cout = os.path.join(work, "checked")
+    os.makedirs(cout)
+    checked_map(idx, cout, checker)
+    checked_freq = freq_of(cout)
+
+    runs, launches = [], None
+    log(f"main: host load average before the timed runs {os.getloadavg()}, "
+        f"{os.cpu_count()} cores")
+    for i in range(TIMED_RUNS):
+        gout = os.path.join(work, f"gpu{i}")
+        os.makedirs(gout)
         torch.cuda.reset_peak_memory_stats()
-    report = {}
-    kernels.reset_launches()
-    t = time.perf_counter()
-    rc = map_main(["-I", idx, "-O", gout + "/", "-K", str(K), "-E", str(E),
-                   "-fl", "-r", "--device", dev.type], report=report)
-    if on_card:
+        report = {}
+        kernels.reset_launches()
+        t = time.perf_counter()
+        rc = map_main(["-I", idx, "-O", gout + "/", "-K", str(K), "-E", str(E),
+                       "-fl", "-r", "--device", "cuda"], report=report)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = kernels.launch_counts()
-    if rc != 0:
-        raise AssertionError(f"genmap-tpu-torch map exited {rc}")
-    st = report["stats"]
-    kps = report["n_kmers"] / report["compute_s"]
-    log(f"main: map -K {K} -E {E} of {report['n_kmers']} k-mers on {dev}: "
-        f"{report['compute_s']:.2f} s compute ({wall:.2f} s with index upload and "
-        f"seed tables), {kps:.1f} k-mers/s")
-    peak = torch.cuda.max_memory_allocated() if on_card else "not measured"
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"genmap-tpu-torch map exited {rc}")
+        missing = [n for n, c in counts.items() if c <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: {missing}")
+        if launches is not None and counts != launches:
+            raise AssertionError(f"launch counts differ between runs: {counts} != {launches}")
+        launches = counts
+        gpu_freq = freq_of(gout)
+        if not np.array_equal(gpu_freq, checked_freq):
+            raise AssertionError("timed run's frequencies differ from the checked run's")
+        st = report["stats"]
+        kps = report["n_kmers"] / report["compute_s"]
+        runs.append(kps)
+        log(f"main: timed run {i + 1}: map -K {K} -E {E} of {report['n_kmers']} k-mers: "
+            f"{report['compute_s']:.2f} s compute ({wall:.2f} s with index upload "
+            f"and seed tables), {kps:.1f} k-mers/s; dispatch {st['dispatch_s']:.2f} s "
+            f"fetch {st['fetch_s']:.2f} s scatter {st['scatter_s']:.2f} s; "
+            f"peak allocated {torch.cuda.max_memory_allocated()} B")
+    log(f"main: host load average after the timed runs {os.getloadavg()}")
     log(f"main: device bytes resident (index + text + seed tables) "
-        f"{report['resident_bytes']}; peak allocated {peak}")
-    log(f"main: tier blocks {st['tier_blocks']}, batches {st['batches']}, "
-        f"escalated blocks {st['overflow_blocks']}; timers dispatch "
-        f"{st['dispatch_s']:.2f} s fetch {st['fetch_s']:.2f} s scatter {st['scatter_s']:.2f} s")
-    log(f"main: kernel launches {launches}")
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    gpu_freq = np.fromfile(os.path.join(gout, "yeastlike.genmap.freq16"), dtype="<u2")
-    if gpu_freq.shape[0] != sum(len(c) for _, c in chroms):
-        raise AssertionError("frequency vector has the wrong length")
+        f"{report['resident_bytes']}; tier blocks {st['tier_blocks']}, batches "
+        f"{st['batches']}, escalated blocks {st['overflow_blocks']}")
+    log(f"main: kernel launches per run {launches}")
     if not (gpu_freq[: len(chroms[0][1]) - K + 1] >= 1).all():
         raise AssertionError("a k-mer without N has frequency 0 (its own occurrence)")
 
-    # phase 4: CPU cross-check on a BED selection
+    # phase 5: CPU cross-check on a BED selection
     wins, cum = selection(chroms, gpu_freq)
     bed = os.path.join(work, "sel.bed")
     with open(bed, "w") as f:
@@ -428,15 +575,15 @@ def main_path(dev, work):
     mask = np.zeros(len(gpu_freq), bool)
     for _name, b, e, ci in wins:
         mask[cum[ci] + b : cum[ci] + e] = True
-    cout = os.path.join(work, "cpu")
-    os.makedirs(cout)
+    pout = os.path.join(work, "cpu")
+    os.makedirs(pout)
     t = time.perf_counter()
     creport = {}
-    rc = map_main(["-I", idx, "-O", cout + "/", "-K", str(K), "-E", str(E),
+    rc = map_main(["-I", idx, "-O", pout + "/", "-K", str(K), "-E", str(E),
                    "-fl", "-r", "-S", bed, "--device", "cpu"], report=creport)
     if rc != 0:
         raise AssertionError(f"CPU map exited {rc}")
-    cpu_freq = np.fromfile(os.path.join(cout, "yeastlike.genmap.freq16"), dtype="<u2")
+    cpu_freq = freq_of(pout)
     nsel = int(mask.sum())
     bad = int((cpu_freq[mask] != gpu_freq[mask]).sum())
     log(f"check: {nsel} k-mers in {len(wins)} windows ({(gpu_freq[mask] > 1).sum()} "
@@ -445,8 +592,8 @@ def main_path(dev, work):
         f"{bad} mismatches")
     if nsel < 20_000 or bad:
         raise AssertionError(f"cross-check failed: {nsel} k-mers, {bad} mismatches")
-    return launches, dict(kmers_per_s=kps, n_kmers=report["n_kmers"],
-                          compute_s=report["compute_s"],
+    return launches, dict(kmers_per_s_median=float(np.median(runs)),
+                          kmers_per_s_runs=runs, n_kmers=report["n_kmers"],
                           resident_bytes=report["resident_bytes"],
                           tier_blocks=st["tier_blocks"])
 
@@ -480,9 +627,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    rows = kernel_phase(dev)
-    with tempfile.TemporaryDirectory(prefix="genmap_smoke_") as work:
-        launches, summary = main_path(dev, work)
+    with _Checker(kernels) as checker:
+        dna5_phase(dev, checker)
+        with tempfile.TemporaryDirectory(prefix="genmap_smoke_") as work:
+            launches, summary = main_path(dev, work, checker)
+            rows = time_kernels(checker)
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(f"main summary: {json.dumps(summary)}")

@@ -162,14 +162,28 @@ EXTRACT_NEEDLES = Kernel(
 )
 
 
+def extract_needles_plain(words, nwords, starts, Ln: int, limit: int,
+                          text_limit: int) -> torch.Tensor:
+    """Plain PyTorch version of `extract_needles`."""
+    pos = rank.u32(starts)[:, None] + torch.arange(Ln, dtype=torch.int64,
+                                                  device=starts.device)
+    valid = pos < limit
+    pc = pos.clamp(max=text_limit - 1)
+    code = (rank.u32(words[pc >> 4]) >> ((pc & 15) * 2)) & 3
+    if nwords.shape[0] > 0:
+        nbit = (rank.u32(nwords[pc >> 5]) >> (pc & 31)) & 1
+        code = torch.where(nbit == 1, 4, code)
+    return torch.where(valid, code, 0).to(torch.uint8)
+
+
 def extract_needles(words, nwords, starts, Ln: int, limit: int,
                     text_limit: int) -> torch.Tensor:
     """[B, Ln] uint8 needle windows at the global base positions `starts`
     ([B] int32 holding uint32) of the packed text; positions >= `limit`
     read as code 0 and N bases as code 4."""
     if not starts.is_cuda:
-        return rank.extract_needles_plain(words, nwords, starts, Ln, limit,
-                                          text_limit)
+        return extract_needles_plain(words, nwords, starts, Ln, limit,
+                                     text_limit)
     dev = starts.device
     _check(starts, "starts", torch.int32, device=dev)
     _check(words, "words", torch.int32, device=dev)

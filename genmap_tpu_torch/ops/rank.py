@@ -427,20 +427,6 @@ class DeviceText:
         )
 
 
-def extract_needles_plain(words, nwords, starts, Ln: int, limit: int,
-                          text_limit: int) -> torch.Tensor:
-    """[B, Ln] uint8 needle windows; positions >= `limit` read as code 0."""
-    pos = u32(starts)[:, None] + torch.arange(Ln, dtype=torch.int64,
-                                             device=starts.device)
-    valid = pos < limit
-    pc = pos.clamp(max=text_limit - 1)
-    code = (u32(words[pc >> 4]) >> ((pc & 15) * 2)) & 3
-    if nwords.shape[0] > 0:
-        nbit = (u32(nwords[pc >> 5]) >> (pc & 31)) & 1
-        code = torch.where(nbit == 1, 4, code)
-    return torch.where(valid, code, 0).to(torch.uint8)
-
-
 def extract_needles(text: DeviceText, starts: torch.Tensor, Ln: int,
                     limit: int) -> torch.Tensor:
     """[B, Ln] uint8 needle windows of the packed text.
