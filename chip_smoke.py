@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of genmap_tpu_torch on one NVIDIA GPU: kernels, main path,
-cross-check.
+dedup, CSV locations and exclude-pseudo, cross-checks.
 
     python3 chip_smoke.py
 
@@ -17,19 +17,40 @@ or of the JAX package.  Phases (any failure exits non-zero):
   3. main    `genmap-tpu-torch index` of a 12.07 Mbp genome-like genome laid
              out as S. cerevisiae's 16 nuclear chromosomes (Dna4), then
              `genmap-tpu-torch map -K 100 -E 2` of the whole genome on the
-             card, four times:
+             card (the unique-infix probe on, as by default), four times:
              - a checked run: every kernel call of the seed-table build and
-               of the first batch of each tier is held against its plain
-               version (exactly), and that batch is profiled
+               of the first batch of each program (the probe and each tier)
+               is held against its plain version (exactly), and that batch
+               is profiled
              - three timed runs: launch counters set to 0 just before and
-               read just after each; every kernel must have launched; the
-               k-mers/s figure is their median
-  4. kernels the largest checked call of each kernel is timed on the card
+               read just after each; every kernel of the path must have
+               launched; the k-mers/s figure is their median
+  4. check   `map -d` on the CPU (plain PyTorch path) and on the card for a
+             BED selection of >= 20,000 k-mers spread over the genome, half
+             of them in repeat-rich windows (below the probe's gate, so the
+             CPU recomputes them without it): the CPU's frequencies must
+             equal the main path's, and both runs' output files (frequencies
+             and CSV) must be byte-equal; every kernel call of the card's
+             run is held against its plain version
+  5. csv     `map -d` of all of chrI on the card (counters reset before and
+             read after; locate must launch): its frequencies must equal
+             the main path's on chrI; located rows/s is logged
+  6. dedup   chrI-chrVII followed by a second copy of them in one file
+             (~9.7 Mbp, duplicate rate 0.5, given to the engine's dedup gate,
+             whose sampled estimate cannot see two-copy duplication at this
+             size), mapped at (100,2) and (24,1) through MappabilityEngine
+             with dedup on and off: frequencies equal, the dedup pass taken
+             in both configurations, and the first batch of each program
+             held against the plain versions (including the zero-error
+             outputs of count_tail)
+  7. ep      a directory of two FASTA files (chrI-chrIII, and the same with
+             1 % substitutions under other names): `index -FD`, then
+             `map -ep -d -fl -r` over chrI of both files on the card, and over a
+             >= 10,000-k-mer sub-selection on the card and on the CPU, whose
+             output files must be byte-equal
+  8. kernels the largest checked call of each kernel is timed on the card
              (kernel, plain version, library call where one exists) beside
              its bound
-  5. check   the same map on the CPU (plain PyTorch path) for a BED selection
-             of >= 20,000 k-mers spread over the genome, half of them in
-             repeat-rich windows; frequencies must equal the card's exactly
 
 Output: a line per kernel, `{"kernels": [...]}`, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
@@ -64,7 +85,11 @@ K, E = 100, 2
 DNA5_BP = 1_000_000  # Dna5 index of phase 2
 B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
 TIMED_RUNS = 3
-NAMES = ("extract_needles", "candidate_step", "compact", "count_tail")
+NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
+         "probe_mass", "locate")
+MAIN_NAMES = NAMES[:5]  # the kernels of the whole-genome map (no CSV)
+EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
+DEDUP_CHROMS = 7  # chrI-chrVII
 _ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
@@ -201,7 +226,7 @@ class _Checker:
         self.calls = {n: 0 for n in NAMES}
         self.err = {n: 0 for n in NAMES}
         self.variants = {n: set() for n in NAMES}
-        self.largest = {n: None for n in NAMES}
+        self.largest = {}  # timing_key -> (size, args, phase)
         self.orig = {}
 
     def __enter__(self):
@@ -236,8 +261,14 @@ class _Checker:
                                  f"{self.phase} (max abs err {err}, "
                                  f"{variant(name, args)})")
         size = sum(x.numel() for x in args.values() if hasattr(x, "numel"))
-        if self.keep and (self.largest[name] is None or size > self.largest[name][0]):
-            self.largest[name] = (size, args, self.phase)
+        key = timing_key(name, args)
+        if self.keep and (key not in self.largest or size > self.largest[key][0]):
+            self.largest[key] = (size, args, self.phase)
+
+
+def timing_key(name, args) -> str:
+    """The kernel, or for count_tail's zero-error outputs its own entry."""
+    return "count_tail+exact" if name == "count_tail" and args.get("with_exact") else name
 
 
 def variant(name, args) -> str:
@@ -248,8 +279,14 @@ def variant(name, args) -> str:
                 f"{'exact' if args['exact'] else 'fast'}")
     if name == "compact":
         return f"M={args['arrays'].shape[2]} F={args['F']}"
+    if name == "probe_mass":
+        return (f"F={args['st'].shape[2]} P={args['thr'].numel()} "
+                f"N-window={args['has_n']} mass={bool(args.get('with_mass'))}")
+    if name == "locate":
+        return f"A={args['index'].nchars} sampling={args['index'].sampling}"
     N = args["valid"].numel()
-    return f"Fe={N // (args['cnt'].numel() * args['J'])} rc={args['rev_compl']}"
+    return (f"Fe={N // (args['cnt'].numel() * args['J'])} rc={args['rev_compl']} "
+            f"exact={bool(args.get('with_exact'))}")
 
 
 def kernel_work(name, args):
@@ -308,19 +345,89 @@ def kernel_work(name, args):
         nbytes = nrows * M + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
         nops = 6 * nrows * M  # ballot, rank popcount, compare per slot
         return nbytes, nops, f"R={R} rows={nrows} M={M} F={F}", 0
+    if name == "probe_mass":
+        st, valid = args["st"], args["valid"]
+        _R, Bp, F = st.shape
+        P = args["thr"].numel()
+        nvalid = int(valid.sum())
+        Ln = args["needles"].shape[1]
+        nbytes = (Bp * F + 8 * nvalid + Bp + (Bp * Ln if args["has_n"] else 0)
+                  + 4 * P + Bp + ((4 * P + 1) * Bp if args.get("with_mass") else 0))
+        nops = 4 * Bp * F + 2 * P * nvalid
+        return nbytes, nops, f"B={Bp} F={F} P={P} valid={nvalid}", 0
+    if name == "locate":
+        return locate_work(args)
     cnt, J = args["cnt"], args["J"]
     N = args["valid"].numel()
-    nvalid = int(args["valid"].sum())
+    v = args["valid"].bool()
+    nvalid = int(v.sum())
+    exact = bool(args.get("with_exact"))
+    n_exact = int((v & (args["st"][3] == 0)).sum()) if exact else 0
+    n_strand = (0 if args["rev_compl"] else nvalid) + (n_exact if args["rev_compl"] else 0)
     nbytes = (N + 2 * nvalid * 4 + cnt.numel() * 4 + cnt.numel() * J * 2
-              + (0 if args["rev_compl"] else 2 * nvalid * 20))
-    nops = 6 * N + (0 if args["rev_compl"] else 30 * nvalid)
-    return nbytes, nops, f"B={cnt.numel()} J={J} Fe={N // (cnt.numel() * J)} valid={nvalid}", 0
+              + 2 * n_strand * 20 + (nvalid * 4 + 3 * cnt.numel() * J * 4 if exact else 0))
+    nops = 6 * N + 30 * n_strand + 4 * n_exact
+    return nbytes, nops, (f"B={cnt.numel()} J={J} Fe={N // (cnt.numel() * J)} valid={nvalid}"
+                          + (f" exact={n_exact}" if exact else "")), 0
+
+
+def locate_work(args):
+    """Bytes and operations of one locate call, from the walk these rows
+    take: every rank sub-row and indicator row a walk reads (distinct ones
+    counted once), the samples looked up, positions in and answers out;
+    the reads are the LF steps plus the indicator checks."""
+    import torch
+
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    ix, pos, valid = args["index"], args["pos"], args["valid"]
+    subw = sub_width(ix.has_n)
+    C = rank.u32(ix.C)
+    p = rank.u32(pos)
+    live = valid.bool().clone()
+    subs, inds, steps = [], [], 0
+    for _ in range(ix.sampling):
+        if not live.any():
+            break
+        q = p[live]
+        inds.append(q >> 7)
+        irows = rank.u32(ix.ind_blocks[q >> 7])
+        off = q & 127
+        ibit = (irows[:, 1:].gather(1, (off >> 5)[:, None])[:, 0] >> (off & 31)) & 1
+        go = ibit == 0
+        q = q[go]
+        subs.append(q >> 9)
+        sub = ix.fwd_blocks[q >> 9, :subw]
+        code, _s = rank.bwt_char(sub, q, ix.has_n)
+        occ, _sent = rank._occ_sub(sub, q, ix.has_n)
+        nxt = p[live].clone()
+        nxt[go] = (C[code] + occ.gather(1, code[:, None])[:, 0]) & rank.MASK32
+        p[live] = nxt
+        idx = torch.nonzero(live).squeeze(1)
+        live[idx[~go]] = False
+        steps += int(go.sum())
+    n = pos.numel()
+    n_sub = int(torch.unique(torch.cat(subs)).numel()) if subs else 0
+    n_ind = int(torch.unique(torch.cat(inds)).numel()) if inds else 0
+    nbytes = n * (4 + 1 + 8) + n_sub * subw * 4 + n_ind * 20 + 8 * int(valid.sum())
+    nops = steps * (32 * 10 + 2 * 16 * 4 + 10)
+    reads = steps + sum(int(x.numel()) for x in inds)
+    return (nbytes, nops, f"N={n} rows, {steps} LF steps (max {ix.sampling} per row) "
+            f"over {n_sub} distinct sub-rows", reads)
 
 
 def library_fn(name, args):
     """One PyTorch call computing the same function, where there is one."""
     import torch
 
+    if name == "probe_mass":  # per-plan mass: one scatter_add over plan ids
+        st = args["st"]
+        P = args["thr"].numel()
+        plan = st[4].to(torch.int64).clamp(0, P - 1)
+        size = torch.where(args["valid"].bool(), st[2].to(torch.int64) & 0xFFFFFFFF, 0)
+        zeros = torch.zeros((st.shape[1], P), dtype=torch.int64, device=st.device)
+        return lambda: torch.scatter_add(zeros, 1, plan, size)
     if name != "compact":
         return None
     arrays, valid, F = args["arrays"], args["valid"], args["F"]
@@ -334,15 +441,17 @@ def library_fn(name, args):
     return library
 
 
-def time_kernels(checker):
-    """Phase 4: the largest checked main-path call of each kernel, timed."""
+def time_kernels(checker, launches):
+    """Phase 8: the largest checked call of each kernel (and of count_tail's
+    zero-error variant), timed; returns the kernels line's rows."""
     from genmap_tpu_torch import kernels
 
     rows = []
-    for name in NAMES:
-        if checker.largest[name] is None:
-            raise AssertionError(f"{name}: no main-path call was checked")
-        _size, args, phase = checker.largest[name]
+    for key in NAMES + ("count_tail+exact",):
+        name = key.split("+")[0]
+        if key not in checker.largest:
+            raise AssertionError(f"{key}: no call was checked")
+        _size, args, phase = checker.largest[key]
         wrapper = checker.orig[name]
         plain = getattr(kernels, f"{name}_plain")
         ms = device_ms(lambda: wrapper(**args))
@@ -355,21 +464,74 @@ def time_kernels(checker):
         ops_ms = nops / H100_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"kernel {name}: {checker.calls[name]} checked calls equal to plain "
+        rate = ""
+        if name == "locate":
+            n = args["pos"].numel()
+            rate = f" located_rows_per_s={n / (ms * 1e-3):.3e} flushed"
+        elif n_reads:
+            rate = (f" rows_per_s={n_reads / (ms * 1e-3):.3e} flushed, "
+                    f"{n_reads / (warm_ms * 1e-3):.3e} warm")
+        log(f"kernel {key}: {checker.calls[name]} checked calls equal to plain "
             f"(variants: {', '.join(sorted(checker.variants[name]))}); largest, "
             f"in {phase}: {shape}: {ms:.4f} ms with L2 flushed, {warm_ms:.4f} ms "
             f"warm (plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
             f"{nbytes} B, {nops} ops"
             + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
-            + ")" + (f" rows_per_s={n_reads / (ms * 1e-3):.3e} flushed, "
-                     f"{n_reads / (warm_ms * 1e-3):.3e} warm" if n_reads else ""))
+            + f"){rate}; launches {launches[name]}")
+        if key != name:
+            continue  # logged only: the kernels line has one entry per kernel
         rows.append(dict(
             name=name, route="cuda", source=f"genmap_tpu_torch/csrc/{kernels.KERNELS[name].source}",
-            replaces=kernels.KERNELS[name].replaces, launches=0,
+            replaces=kernels.KERNELS[name].replaces, launches=launches[name],
             max_abs_err=checker.err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         ))
     return rows
+
+
+def time_seed_tables(idx):
+    """K2 on the main path's index: the seed-table build (its candidate
+    steps are the candidate_step kernel) and the per-batch lookup glue
+    (`initial_states`), device times beside the build's byte bound."""
+    import torch
+
+    from genmap_tpu_torch.cli.map_cmd import default_overlap
+    from genmap_tpu_torch.index.fmindex import FMIndexData, sub_width
+    from genmap_tpu_torch.ops import rank
+    from genmap_tpu_torch.search import engine as se
+    from genmap_tpu_torch.search.schemes import plans_for
+
+    data = FMIndexData.load(idx)
+    index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device="cuda")
+    text = rank.DeviceText.from_host(data, "cuda")
+    build_ms = device_ms(lambda: rank.with_seed_tables(index), reps=3)
+    out_bytes = 4 * (index.seed_mlo.numel() + index.seed_size.numel())
+    row_bytes = index.fwd_blocks.shape[0] * sub_width(index.has_n) * 4
+    bound_ms = (out_bytes + row_bytes) / H100_BYTES_PER_S * 1e3
+    x = min(default_overlap(K, E), min(K - 1, K - E - 2))
+    o = K - x
+    J = K - o + 1
+    sched = se._InfixSchedule(plans_for(E, o), K - o, index.device)
+    t_seed = se.seed_steps(index, sched, sched.T)
+    rng = np.random.default_rng(SEED + 5)
+    for B in (1024, 8192):
+        starts = rng.integers(0, data.text_len - K - J, B).astype(np.uint32)
+        needles = rank.extract_needles(
+            text, torch.from_numpy(starts.view(np.int32)).to(index.device), K + J - 1,
+            data.text_len)
+        torch.cuda.synchronize()
+        lookup_ms = device_ms(lambda: se.initial_states(index, sched, needles, t_seed, 4,
+                                                        index.n_total))
+        t = time.perf_counter()
+        for _ in range(10):
+            se.initial_states(index, sched, needles, t_seed, 4, index.n_total)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 100
+        log(f"kernel seed tables (K2): lookup of t0={t_seed} levels for B={B} blocks "
+            f"x P={sched.P} plans: {lookup_ms:.4f} ms device, {host_ms:.4f} ms wall per batch")
+    log(f"kernel seed tables (K2): build of t0={index.seed_t0} levels on the "
+        f"{index.n_total}-symbol index: {build_ms:.3f} ms device (bound {bound_ms:.5f} ms "
+        f"by bytes: {out_bytes} B of tables written, {row_bytes} B of rank sub-rows read)")
 
 
 # ---------------------------------------------------------------------------
@@ -416,14 +578,14 @@ def dna5_phase(dev, checker):
         torch.cuda.synchronize()
     finally:
         checker.on = False
-    n = {k: checker.calls[k] - before[k] for k in NAMES}
+    n = {k: checker.calls[k] - before[k] for k in NAMES[:4]}
     log(f"dna5: one (100,2) B={B_DNA5} batch: kernel calls equal to plain {n}")
     if min(n.values()) == 0:
         raise AssertionError(f"the Dna5 batch did not call every kernel: {n}")
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 5: the main path through the CLI, and the CPU cross-check
+# phases 3-7: the main path through the CLI, cross-checks, CSV, dedup, -ep
 # ---------------------------------------------------------------------------
 
 
@@ -450,55 +612,104 @@ def selection(chroms, gpu_freq, want=24_000, win=500):
     return wins, cum
 
 
+class first_batches_checked:
+    """While active, the first batch of every batch program an engine runs
+    (the probe, each tier, the dedup pre-pass) is profiled (with `profile`)
+    and then run with every kernel call held against its plain version."""
+
+    def __init__(self, checker, where: str, profile: bool = False):
+        self.checker, self.where, self.profile = checker, where, profile
+        self.seen = set()
+
+    def __enter__(self):
+        from genmap_tpu_torch.engine.mappability import MappabilityEngine
+
+        self.orig = orig = MappabilityEngine._run_batch
+        checker, seen = self.checker, self.seen
+
+        def run_batch(eng, run, layout, bstarts, bcnts, B):
+            if id(run) in seen:
+                checker.on = False
+                return orig(eng, run, layout, bstarts, bcnts, B)
+            seen.add(id(run))
+            t = run.tier
+            label = (f"{self.where}: first batch of "
+                     f"{'the probe' if run.probe else 'tier'}(f_search={t.f_search}, "
+                     f"f_extend={t.f_extend}, exact={t.exact}, ext_exact={t.ext_exact}, "
+                     f"K={run.K}, e={run.errors}"
+                     f"{', with_exact' if run.with_exact else ''}) B={B} "
+                     f"({len(bstarts)} blocks)")
+            checker.on = False
+            if self.profile:
+                profile_batch(lambda: orig(eng, run, layout, bstarts, bcnts, B), label)
+            checker.on, checker.keep, checker.phase = True, True, label
+            try:
+                return orig(eng, run, layout, bstarts, bcnts, B)
+            finally:
+                checker.on = checker.keep = False
+
+        MappabilityEngine._run_batch = run_batch
+        return self
+
+    def __exit__(self, *exc):
+        from genmap_tpu_torch.engine.mappability import MappabilityEngine
+
+        MappabilityEngine._run_batch = self.orig
+        self.checker.on = self.checker.keep = False
+
+
 def checked_map(idx, out, checker) -> None:
     """The map with every kernel call of the seed-table build and of the
-    first batch of each tier held against its plain version; that batch is
-    profiled first."""
+    first batch of each program held against its plain version; that batch
+    is profiled first."""
     from genmap_tpu_torch.cli.map_cmd import map_main
-    from genmap_tpu_torch.engine.mappability import MappabilityEngine
 
-    orig = MappabilityEngine._run_batch
-    seen = set()
-
-    def run_batch(self, run, layout, bstarts, bcnts, B):
-        if id(run) in seen:
-            checker.on = False
-            return orig(self, run, layout, bstarts, bcnts, B)
-        seen.add(id(run))
-        t = run.tier
-        label = (f"first batch of tier(f_search={t.f_search}, f_extend={t.f_extend}, "
-                 f"exact={t.exact}) B={B} ({len(bstarts)} blocks)")
-        checker.on = False
-        profile_batch(lambda: orig(self, run, layout, bstarts, bcnts, B), label)
-        checker.on, checker.keep, checker.phase = True, True, label
-        try:
-            return orig(self, run, layout, bstarts, bcnts, B)
-        finally:
-            checker.on = checker.keep = False
-
-    MappabilityEngine._run_batch = run_batch
-    checker.on, checker.phase = True, "the seed-table build"
     before = dict(checker.calls)
     t = time.perf_counter()
-    try:
+    report = {}
+    with first_batches_checked(checker, "main", profile=True) as fb:
+        checker.on, checker.phase = True, "the seed-table build"
         rc = map_main(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
-                       "-fl", "-r", "--device", "cuda"])
-    finally:
-        MappabilityEngine._run_batch = orig
-        checker.on = checker.keep = False
+                       "-fl", "-r", "--device", "cuda"], report=report)
     if rc != 0:
         raise AssertionError(f"checked map exited {rc}")
     n = {k: checker.calls[k] - before[k] for k in NAMES}
-    log(f"main: checked map ({len(seen)} tier programs) in "
-        f"{time.perf_counter() - t:.2f} s: kernel calls equal to plain {n}")
+    log(f"main: checked map ({len(fb.seen)} batch programs) in "
+        f"{time.perf_counter() - t:.2f} s: kernel calls equal to plain {n}; "
+        f"probe skipped {report['stats']['probe_skipped']} blocks")
+    if n["probe_mass"] == 0:
+        raise AssertionError("the main path ran no probe batch")
+
+
+def counted_map(argv, report=None):
+    """`genmap-tpu-torch map argv` with the launch counters set to 0 just
+    before and read just after; returns the counts."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.cli.map_cmd import map_main
+
+    kernels.reset_launches()
+    rc = map_main(argv, report=report)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"genmap-tpu-torch map {' '.join(argv)} exited {rc}")
+    return counts
+
+
+def read_tree(d):
+    out = {}
+    for fn in sorted(os.listdir(d)):
+        with open(os.path.join(d, fn), "rb") as f:
+            out[fn] = f.read()
+    return out
 
 
 def main_path(dev, work, checker):
     import torch
 
-    from genmap_tpu_torch import kernels
     from genmap_tpu_torch.cli.main import main as cli_main
-    from genmap_tpu_torch.cli.map_cmd import map_main
 
     t = time.perf_counter()
     chroms = yeast_like_genome()
@@ -532,16 +743,11 @@ def main_path(dev, work, checker):
         os.makedirs(gout)
         torch.cuda.reset_peak_memory_stats()
         report = {}
-        kernels.reset_launches()
         t = time.perf_counter()
-        rc = map_main(["-I", idx, "-O", gout + "/", "-K", str(K), "-E", str(E),
-                       "-fl", "-r", "--device", "cuda"], report=report)
-        torch.cuda.synchronize()
+        counts = counted_map(["-I", idx, "-O", gout + "/", "-K", str(K), "-E", str(E),
+                              "-fl", "-r", "--device", "cuda"], report=report)
         wall = time.perf_counter() - t
-        counts = kernels.launch_counts()
-        if rc != 0:
-            raise AssertionError(f"genmap-tpu-torch map exited {rc}")
-        missing = [n for n, c in counts.items() if c <= 0]
+        missing = [n for n in MAIN_NAMES if counts[n] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
         if launches is not None and counts != launches:
@@ -560,13 +766,25 @@ def main_path(dev, work, checker):
             f"peak allocated {torch.cuda.max_memory_allocated()} B")
     log(f"main: host load average after the timed runs {os.getloadavg()}")
     log(f"main: device bytes resident (index + text + seed tables) "
-        f"{report['resident_bytes']}; tier blocks {st['tier_blocks']}, batches "
-        f"{st['batches']}, escalated blocks {st['overflow_blocks']}")
+        f"{report['resident_bytes']}; probe skipped {st['probe_skipped']} blocks; "
+        f"residual blocks per tier {st['tier_blocks']}, batches {st['batches']}, "
+        f"escalated blocks {st['overflow_blocks']}")
     log(f"main: kernel launches per run {launches}")
     if not (gpu_freq[: len(chroms[0][1]) - K + 1] >= 1).all():
         raise AssertionError("a k-mer without N has frequency 0 (its own occurrence)")
+    summary = dict(kmers_per_s_median=float(np.median(runs)), kmers_per_s_runs=runs,
+                   n_kmers=report["n_kmers"], resident_bytes=report["resident_bytes"],
+                   probe_skipped=st["probe_skipped"], tier_blocks=st["tier_blocks"])
+    return launches, summary, idx, chroms, gpu_freq
 
-    # phase 5: CPU cross-check on a BED selection
+
+def check_phase(work, idx, chroms, gpu_freq, checker):
+    """Phase 4: `map -d` of a BED selection on the CPU and, checked call by
+    call, on the card; frequencies against the main path's, files against
+    each other."""
+    from genmap_tpu_torch.cli.map_cmd import map_main
+    from genmap_tpu_torch.ops import rank
+
     wins, cum = selection(chroms, gpu_freq)
     bed = os.path.join(work, "sel.bed")
     with open(bed, "w") as f:
@@ -575,27 +793,224 @@ def main_path(dev, work, checker):
     mask = np.zeros(len(gpu_freq), bool)
     for _name, b, e, ci in wins:
         mask[cum[ci] + b : cum[ci] + e] = True
-    pout = os.path.join(work, "cpu")
-    os.makedirs(pout)
-    t = time.perf_counter()
-    creport = {}
-    rc = map_main(["-I", idx, "-O", pout + "/", "-K", str(K), "-E", str(E),
-                   "-fl", "-r", "-S", bed, "--device", "cpu"], report=creport)
-    if rc != 0:
-        raise AssertionError(f"CPU map exited {rc}")
-    cpu_freq = freq_of(pout)
+    trees = {}
+    build = rank.with_seed_tables
+
+    def seed_tables(index):  # checked, but not kept for timing: not a batch call
+        checker.keep = False
+        try:
+            return build(index)
+        finally:
+            checker.keep = True
+
+    rank.with_seed_tables = seed_tables
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(work, f"sel_{dev}")
+        os.makedirs(out)
+        t = time.perf_counter()
+        report = {}
+        checker.on, checker.keep, checker.phase = dev == "cuda", True, "the -d selection map"
+        try:
+            rc = map_main(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
+                           "-fl", "-r", "-d", "-S", bed, "--device", dev], report=report)
+        finally:
+            checker.on = checker.keep = False
+            if dev == "cuda":
+                rank.with_seed_tables = build
+        if rc != 0:
+            raise AssertionError(f"{dev} -d map exited {rc}")
+        trees[dev] = read_tree(out)
+        log(f"check: -d map of the selection on {dev} in {time.perf_counter() - t:.1f} s "
+            f"(tier blocks {report['stats']['tier_blocks']})")
+    cpu_freq = np.frombuffer(trees["cpu"]["yeastlike.genmap.freq16"], dtype="<u2")
     nsel = int(mask.sum())
     bad = int((cpu_freq[mask] != gpu_freq[mask]).sum())
+    same = [fn for fn in trees["cpu"] if trees["cpu"][fn] == trees["cuda"].get(fn)]
     log(f"check: {nsel} k-mers in {len(wins)} windows ({(gpu_freq[mask] > 1).sum()} "
-        f"with frequency > 1, max {gpu_freq[mask].max()}) recomputed on the CPU in "
-        f"{time.perf_counter() - t:.1f} s (tier blocks {creport['stats']['tier_blocks']}): "
-        f"{bad} mismatches")
+        f"with frequency > 1, max {gpu_freq[mask].max()}): {bad} mismatches against "
+        f"the main path; CPU and card files {sorted(trees['cpu'])}, byte-equal: {same} "
+        f"(csv {len(trees['cpu']['yeastlike.genmap.csv'])} B)")
     if nsel < 20_000 or bad:
         raise AssertionError(f"cross-check failed: {nsel} k-mers, {bad} mismatches")
-    return launches, dict(kmers_per_s_median=float(np.median(runs)),
-                          kmers_per_s_runs=runs, n_kmers=report["n_kmers"],
-                          resident_bytes=report["resident_bytes"],
-                          tier_blocks=st["tier_blocks"])
+    if sorted(trees["cpu"]) != sorted(trees["cuda"]) or len(same) != len(trees["cpu"]):
+        raise AssertionError("CPU and card -d output files differ")
+    return dict(kmers=nsel, mismatches=bad)
+
+
+def csv_phase(work, idx, chroms, gpu_freq):
+    """Phase 5: `map -d` of all of chrI on the card."""
+    from genmap_tpu_torch.engine.mappability import MappabilityEngine
+
+    name, codes = chroms[0]
+    nk = len(codes) - K + 1
+    bed = os.path.join(work, "chrI.bed")
+    with open(bed, "w") as f:
+        f.write(f"{name}\t0\t{nk}\n")
+    out = os.path.join(work, "csv_chrI")
+    os.makedirs(out)
+    orig = MappabilityEngine.locate_many
+    located = [0, 0.0]
+
+    def timed_locate(eng, positions):
+        t = time.perf_counter()
+        res = orig(eng, positions)  # the host copy of the result waits for the card
+        located[0] += len(positions)
+        located[1] += time.perf_counter() - t
+        return res
+
+    MappabilityEngine.locate_many = timed_locate
+    report = {}
+    t = time.perf_counter()
+    try:
+        counts = counted_map(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
+                              "-fl", "-r", "-d", "-S", bed, "--device", "cuda"], report)
+    finally:
+        MappabilityEngine.locate_many = orig
+    wall = time.perf_counter() - t
+    freq = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+    bad = int((freq[:nk] != gpu_freq[:nk]).sum())
+    csv_bytes = os.path.getsize(os.path.join(out, "yeastlike.genmap.csv"))
+    log(f"csv: map -d of {name} ({nk} k-mers) on the card in {wall:.2f} s "
+        f"({report['compute_s']:.2f} s compute): {located[0]} SA rows located in "
+        f"{located[1]:.3f} s of locate calls ({located[0] / max(located[1], 1e-9):.4e} "
+        f"located rows/s, host copy included); csv {csv_bytes} B; launches {counts}; "
+        f"{bad} frequency mismatches against the main path")
+    if bad:
+        raise AssertionError(f"-d frequencies differ from the main path's on {name}")
+    missing = [n for n in ("extract_needles", "candidate_step", "compact", "count_tail",
+                           "locate") if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the -d map: {missing}")
+    return counts, dict(kmers=nk, located_rows=located[0], locate_s=located[1])
+
+
+def dedup_phase(dev, checker):
+    """Phase 6: chrI-chrVII twice in one file, dedup on against off."""
+    from genmap_tpu_torch.cli.map_cmd import default_overlap
+    from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
+    from genmap_tpu_torch.index.build import build_index
+    from genmap_tpu_torch.io.fasta import FastaFile
+
+    chroms = yeast_like_genome()[:DEDUP_CHROMS]
+    ff = FastaFile(name="dup.fa")
+    ff.ids = [n for n, _ in chroms] + [f"{n}_copy" for n, _ in chroms]
+    ff.seqs = [c for _, c in chroms] * 2
+    t = time.perf_counter()
+    data = build_index([ff], sampling=10)
+    log(f"dedup: {data.text_len} bp index (chrI-chrVII twice) built in "
+        f"{time.perf_counter() - t:.2f} s")
+    orig = MappabilityEngine._compute_with_dedup
+    taken = []
+
+    def spy(self, *a, **kw):
+        taken.append(orig(self, *a, **kw))
+        return taken[-1]
+
+    out = {}
+    for k, e in ((K, E), (24, 1)):
+        x = min(default_overlap(k, e), min(k - 1, k - e - 2))
+        params = SearchParams(length=k, overlap=k - x)
+        freqs = {}
+        for dedup in (True, False):
+            eng = MappabilityEngine(data, batch_blocks=1024, batch_kmers=50000,
+                                    dedup=dedup, light=True, device=dev)
+            lay = eng.layouts[0]
+            if dedup:
+                # The engine's gate estimates the duplicate share from 2^19
+                # sampled k-mers, counting repeats WITHIN the sample: for a
+                # genome of two copies that reads ~2^19 / n (~0.05 here), and
+                # the gate (>= 0.15 / 0.3) would decline.  Give it this
+                # construction's known share, 0.5, and log the estimate.
+                est = eng._sampled_dup_rate(data.decode_slice(lay.start, lay.length),
+                                            k, lay.length - k + 1)
+                eng._dup_rate_cache[(lay.start, lay.length, k)] = 0.5
+                log(f"dedup: ({k},{e}): sampled duplicate share {est:.4f}, "
+                    f"gate given the known 0.5")
+            taken.clear()
+            t = time.perf_counter()
+            MappabilityEngine._compute_with_dedup = spy
+            try:
+                with first_batches_checked(checker, f"dedup ({k},{e}) dedup={dedup}"):
+                    freqs[dedup] = eng.compute_file(lay, params, e, 65535).c
+            finally:
+                MappabilityEngine._compute_with_dedup = orig
+            s_ = eng.stats
+            log(f"dedup: ({k},{e}) dedup={dedup}: {time.perf_counter() - t:.2f} s, "
+                f"dedup pass taken {taken}, probe skipped {s_['probe_skipped']}, "
+                f"tier blocks {s_['tier_blocks']}, batches {s_['batches']}")
+            if taken != ([True] if dedup else []):
+                raise AssertionError(f"({k},{e}) dedup={dedup}: dedup pass {taken}")
+        bad = int((freqs[True] != freqs[False]).sum())
+        dup = float((freqs[True][: data.text_len // 2 - k] >= 2).mean())
+        log(f"dedup: ({k},{e}): {bad} mismatches dedup on vs off; "
+            f"{dup:.4f} of the first copy's k-mers have frequency >= 2")
+        if bad:
+            raise AssertionError(f"({k},{e}): dedup changes frequencies")
+        out[f"{k},{e}"] = dict(mismatches=bad)
+    if checker.calls["count_tail"] == 0 or "count_tail+exact" not in checker.largest:
+        raise AssertionError("no zero-error count_tail call was checked")
+    return out
+
+
+def ep_phase(work):
+    """Phase 7: exclude-pseudo over a directory of two FASTA files."""
+    from genmap_tpu_torch.cli.main import main as cli_main
+    from genmap_tpu_torch.cli.map_cmd import map_main
+
+    rng = np.random.default_rng(SEED + 3)
+    base = yeast_like_genome()[:3]
+    fdir = os.path.join(work, "ep_fasta")
+    os.makedirs(fdir)
+    write_fasta(os.path.join(fdir, "a.fa"), [(f"{n}_A", c) for n, c in base])
+    mutated = []
+    for n, c in base:
+        c = c.copy()
+        sub = rng.random(len(c)) < 0.01
+        c[sub] = (c[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        mutated.append((f"{n}_B", c))
+    write_fasta(os.path.join(fdir, "b.fa"), mutated)
+    idx = os.path.join(work, "ep_idx")
+    t = time.perf_counter()
+    if cli_main(["index", "-FD", fdir, "-I", idx]) != 0:
+        raise AssertionError("genmap-tpu-torch index -FD failed")
+    log(f"ep: index of {EP_BP} bp x 2 files built in {time.perf_counter() - t:.2f} s")
+    nk = len(base[0][1]) - K + 1
+    full = os.path.join(work, "ep_chrI.bed")
+    with open(full, "w") as f:
+        f.write(f"chrI_A\t0\t{nk}\nchrI_B\t0\t{nk}\n")
+    sub = os.path.join(work, "ep_sub.bed")
+    with open(sub, "w") as f:
+        for name in ("chrI_A", "chrI_B"):
+            for b in np.linspace(0, nk - 1000, 5).astype(int):
+                f.write(f"{name}\t{b}\t{b + 1000}\n")
+    flags = ["-K", str(K), "-E", str(E), "-ep", "-d", "-fl", "-r"]
+    out = os.path.join(work, "ep_full")
+    os.makedirs(out)
+    t = time.perf_counter()
+    counts = counted_map(["-I", idx, "-O", out + "/", *flags, "-S", full,
+                          "--device", "cuda"])
+    fa = np.fromfile(os.path.join(out, "a.genmap.freq16"), dtype="<u2")[:nk]
+    hist = np.bincount(fa, minlength=3)
+    log(f"ep: map -ep -d of chrI of both files on the card in "
+        f"{time.perf_counter() - t:.2f} s; launches {counts}; file A chrI distinct-file "
+        f"counts 0/1/2: {hist[:3].tolist()}")
+    if counts["locate"] <= 0 or fa.max() > 2 or hist[2] == 0:
+        raise AssertionError(f"-ep map of chrI: launches {counts}, counts {hist.tolist()}")
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        o = os.path.join(work, f"ep_sub_{dev}")
+        os.makedirs(o)
+        t = time.perf_counter()
+        if map_main(["-I", idx, "-O", o + "/", *flags, "-S", sub, "--device", dev]) != 0:
+            raise AssertionError(f"-ep map of the sub-selection on {dev} failed")
+        trees[dev] = read_tree(o)
+        log(f"ep: sub-selection (10 x 1000 k-mers) on {dev} in "
+            f"{time.perf_counter() - t:.1f} s")
+    same = sorted(fn for fn in trees["cpu"] if trees["cpu"][fn] == trees["cuda"].get(fn))
+    log(f"ep: CPU and card files {sorted(trees['cpu'])}, byte-equal: {same}")
+    if sorted(trees["cpu"]) != sorted(trees["cuda"]) or len(same) != len(trees["cpu"]):
+        raise AssertionError("CPU and card -ep output files differ")
+    return dict(chrI_counts=hist[:3].tolist(), sub_kmers=10_000)
 
 
 def main() -> int:
@@ -627,14 +1042,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
+    summary = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return res
+
     with _Checker(kernels) as checker:
-        dna5_phase(dev, checker)
+        phase("dna5", dna5_phase, dev, checker)
         with tempfile.TemporaryDirectory(prefix="genmap_smoke_") as work:
-            launches, summary = main_path(dev, work, checker)
-            rows = time_kernels(checker)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    log(f"main summary: {json.dumps(summary)}")
+            launches, summary["main"], idx, chroms, gpu_freq = phase(
+                "main", main_path, dev, work, checker)
+            summary["check"] = phase("check", check_phase, work, idx, chroms,
+                                     gpu_freq, checker)
+            csv_counts, summary["csv"] = phase("csv", csv_phase, work, idx, chroms,
+                                               gpu_freq)
+            summary["dedup"] = phase("dedup", dedup_phase, dev, checker)
+            summary["ep"] = phase("ep", ep_phase, work)
+            # launches: the whole-genome map's, and locate's from the -d map of chrI
+            launches = dict(launches, locate=csv_counts["locate"])
+            rows = phase("kernels", time_kernels, checker, launches)
+            phase("seed tables", time_seed_tables, idx)
+    log(f"summary: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -3,8 +3,8 @@
 Port of `genmap_tpu/cli/map_cmd.py` (itself mirroring GenMap
 src/mappability.hpp:409-642): the same flag surface, overlap default and
 clamp, output-path semantics, BED selection and per-file compute + output
-loop, plus `--device`.  CSV locations (-d), exclude-pseudo (-ep) and
-multi-part indexes are not ported yet and exit with an error.
+loop, CSV locations (-d) and exclude-pseudo (-ep), plus `--device`.
+Multi-part indexes are not ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -19,7 +19,13 @@ import numpy as np
 from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
 from genmap_tpu_torch.index.fmindex import FMIndexData
 from genmap_tpu_torch.io.bed import read_bed3
-from genmap_tpu_torch.io.writers import save_bedgraph, save_raw, save_txt, save_wig
+from genmap_tpu_torch.io.writers import (
+    save_bedgraph,
+    save_csv,
+    save_raw,
+    save_txt,
+    save_wig,
+)
 from genmap_tpu_torch.ops.rank import resolve_device
 
 
@@ -78,11 +84,6 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
     if args.errors > 4:
         print("E > 4 not yet supported.", file=sys.stderr)
         return 1
-    if args.csv or args.exclude_pseudo:
-        print("ERROR: --csv and --exclude-pseudo are not yet ported to "
-              "genmap-tpu-torch; use genmap-tpu for them.", file=sys.stderr)
-        return 1
-
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -142,15 +143,26 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
 
     engine = MappabilityEngine(
         data, batch_blocks=args.batch_blocks, batch_kmers=args.batch_kmers,
-        device=device,
+        # SA samples / locate are only read by the CSV and exclude-pseudo
+        # paths; skipping their upload saves device memory
+        light=not (args.csv or args.exclude_pseudo), device=device,
     )
     params = SearchParams(
         length=K,
         overlap=overlap,
         rev_compl=not args.no_reverse_complement,
+        exclude_pseudo=args.exclude_pseudo,
     )
 
     selection = read_bed3(args.selection) if args.selection else None
+
+    # fasta file boundaries for the csv columns (output.hpp:199-211)
+    fasta_files: list[tuple[str, int]] = []
+    for gi, fn in enumerate(data.seq_files):
+        if not fasta_files or fasta_files[-1][0] != fn:
+            fasta_files.append((fn, gi))
+        else:
+            fasta_files[-1] = (fn, gi)
 
     compute_s = 0.0
     n_kmers = 0
@@ -158,8 +170,10 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
     total_files = len(engine.layouts)
     for file_no, layout in enumerate(engine.layouts, start=1):
         intervals = None
+        csv_intervals = None
         if selection is not None:
             intervals = []
+            csv_intervals = []
             for s, name in enumerate(layout.chrom_names):
                 for begin, end in selection.get(name, []):
                     seq_len = int(layout.chrom_lens[s])
@@ -171,12 +185,14 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
                         return 1
                     cum = int(layout.cum_lens[s])
                     intervals.append((cum + begin, cum + end))
+                    csv_intervals.append((s, begin, end))
+            csv_intervals.sort()
             if not intervals:
                 continue  # skip files without any selected interval
 
         t0 = time.perf_counter()
         res = engine.compute_file(
-            layout, params, errors, cap, intervals=intervals,
+            layout, params, errors, cap, intervals=intervals, csv=args.csv,
             file_no=file_no, total_files=total_files,
         )
         compute_s += time.perf_counter() - t0
@@ -213,6 +229,9 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
         if args.bed:
             timed("BED", save_bedgraph, res.c, path, layout.chrom_names,
                   layout.chrom_lens, False, mappability_out)
+        if args.csv:
+            timed("CSV", save_csv, path, res.locations, params.rev_compl,
+                  fasta_files, csv_intervals)
     st = engine.stats
     if args.verbose:
         print("Mappability computed in "

@@ -1,0 +1,88 @@
+// Unique-infix probe: per-plan survivor mass of every block and its skip bit.
+//
+// Replaces: the probe branch of genmap_tpu/search/engine.py:block_mapper_impl
+// (mass_p, nwin and the skip test against probe_thresholds; an XLA one-hot
+// product and sum on the TPU).
+//
+// Bound on the H100: bytes.  A block reads its F validity bytes, and the
+// size and plan rows of its valid slots (8 B each), and, for Dna5, its Ln
+// needle bytes; it writes one skip byte (and P mass words when asked).
+// Nothing is read twice and the rows of a block are contiguous.
+//
+// Design: one warp per block.  Lanes stride over the F survivor slots and
+// add the size of each valid slot into a per-plan accumulator (P <= 16;
+// the plan count of e <= 4 is at most 7).  Accumulators are 64-bit, so a
+// block whose summed interval sizes pass 2^32 cannot wrap to a small mass
+// and be skipped unsoundly (the JAX package sums in uint32); the written
+// mass saturates at 2^32 - 1, which equals JAX's sum wherever that does not
+// wrap.  A shuffle reduction combines the lanes.  For Dna5 the lanes also
+// scan the needle window for code 4 (N) and a ballot combines them.  Lane
+// 0 then compares each plan's mass against thr[p], ORs in the block's
+// overflow flag and N flag, and writes skip[B].
+
+#include "genmap.cuh"
+
+#define GM_PROBE_MAX_P 16
+
+__global__ void probe_mass_kernel(const int32_t* __restrict__ st,
+                                  const uint8_t* __restrict__ valid,
+                                  int64_t B, int F, int P,
+                                  const uint8_t* __restrict__ ovf,
+                                  const uint8_t* __restrict__ needles, int Ln,
+                                  int has_n, const int32_t* __restrict__ thr,
+                                  uint8_t* __restrict__ skip,
+                                  int32_t* __restrict__ mass_out,
+                                  uint8_t* __restrict__ nwin_out) {
+  const int64_t b = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;  // warp-uniform
+  const int64_t N = B * F;
+  unsigned long long acc[GM_PROBE_MAX_P];
+#pragma unroll
+  for (int p = 0; p < GM_PROBE_MAX_P; ++p) acc[p] = 0ull;
+  for (int s = lane; s < F; s += 32) {
+    const int64_t k = b * F + s;
+    if (!valid[k]) continue;
+    const int plan = st[4 * N + k];
+    const unsigned long long size = (uint32_t)st[2 * N + k];
+#pragma unroll
+    for (int p = 0; p < GM_PROBE_MAX_P; ++p)
+      if (p == plan) acc[p] += size;  // unrolled select keeps acc in registers
+  }
+  bool n_here = false;
+  if (has_n)
+    for (int j = lane; j < Ln; j += 32) n_here |= needles[b * Ln + j] == 4;
+  const bool nwin = __any_sync(0xFFFFFFFFu, n_here);
+  bool ok = true;
+#pragma unroll
+  for (int p = 0; p < GM_PROBE_MAX_P; ++p) {
+    if (p >= P) break;  // P is uniform across the warp
+    unsigned long long m = acc[p];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) m += __shfl_xor_sync(0xFFFFFFFFu, m, d);
+    const uint32_t sat = m > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)m;
+    ok = ok && sat <= (uint32_t)thr[p];
+    if (lane == 0 && mass_out) mass_out[b * P + p] = (int32_t)sat;
+  }
+  if (lane == 0) {
+    skip[b] = (ok && !ovf[b] && !nwin) ? 1 : 0;
+    if (nwin_out) nwin_out[b] = nwin ? 1 : 0;
+  }
+}
+
+extern "C" int genmap_probe_mass(const void* st, const void* valid,
+                                 long long B, int F, int P, const void* ovf,
+                                 const void* needles, int Ln, int has_n,
+                                 const void* thr, void* skip, void* mass_out,
+                                 void* nwin_out, void* stream) {
+  if (B == 0) return 0;
+  if (P < 1 || P > GM_PROBE_MAX_P) return (int)cudaErrorInvalidValue;
+  const int threads = 256;  // 8 blocks of the batch per CUDA block
+  const unsigned int blocks = (unsigned int)((B * 32 + threads - 1) / threads);
+  probe_mass_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)st, (const uint8_t*)valid, (int64_t)B, F, P,
+      (const uint8_t*)ovf, (const uint8_t*)needles, Ln, has_n,
+      (const int32_t*)thr, (uint8_t*)skip, (int32_t*)mass_out,
+      (uint8_t*)nwin_out);
+  return (int)cudaGetLastError();
+}

@@ -1,17 +1,21 @@
 """Host orchestrator: per-file (k,e)-frequency computation on the device.
 
 Port of `genmap_tpu/engine/mappability.py` for a single-part index on one
-device: block decomposition of a file (or of a BED selection), the batch
-loop over the block mapper (search/engine.py), capacity-tier escalation
-routed by overflow kind, a rescue pass at the static largest tier, scatter
-into the frequency vector and resetLimits.  The unique-infix probe,
-same-k-mer dedup, occupancy calibration, the split pipeline and the dimer
-table are not part of this port yet; none of them changes a result.
+device: block decomposition of a file (or of a BED selection), the
+unique-infix probe, same-k-mer dedup, the batch loop over the block mapper
+(search/engine.py), capacity-tier escalation routed by overflow kind, a
+rescue pass at the static largest tier, scatter into the frequency vector,
+the CSV location table, the exclude-pseudo reduction and resetLimits.
+Occupancy calibration, the split pipeline and the dimer table are not part
+of this port yet; none of them changes a result.
 
 Capability map to the reference (GenMap src/):
   - per-file segmentation loop            mappability.hpp:276-365
   - block decomposition + compute         algo.hpp:405-483
   - resetLimits boundary zeroing          algo.hpp:10-22
+  - CSV location collection               algo.hpp:311-386
+  - exclude-pseudo distinct-file count    algo.hpp:351-364
+  - same-k-mer duplicate sharing          algo.hpp:236-242, 389-396
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from genmap_tpu_torch.index.fmindex import FMIndexData
-from genmap_tpu_torch.ops.rank import DeviceIndex, DeviceText, resolve_device
+from genmap_tpu_torch.ops.rank import DeviceIndex, DeviceText, locate, resolve_device
 from genmap_tpu_torch.progress import Progress
 from genmap_tpu_torch.search.engine import (
     DEFAULT_TIERS,
@@ -54,6 +58,7 @@ class SearchParams:
     length: int
     overlap: int
     rev_compl: bool = True
+    exclude_pseudo: bool = False
 
 
 @dataclass
@@ -109,7 +114,13 @@ def reset_limits(c: np.ndarray, K: int, cum_lens: np.ndarray) -> None:
 @dataclass
 class FileResult:
     c: np.ndarray  # uint32 frequency vector (clamped to cap)
+    locations: dict  # {(i1,i2): (fwd_locs, rc_locs)} with per-file keys
     layout: FileLayout
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    """Host copy of an int32 tensor that holds uint32 bits."""
+    return t.cpu().numpy().view(np.uint32)
 
 
 class MappabilityEngine:
@@ -117,7 +128,8 @@ class MappabilityEngine:
 
     Runs on `device` ("cuda" by default; "cpu" takes every kernel's plain
     PyTorch version).  Raises on "cuda" without a card and on multi-part
-    indexes (not ported yet)."""
+    indexes (not ported yet).  `light=True` leaves the SA samples off the
+    device: only `locate` (CSV, exclude-pseudo) reads them."""
 
     def __init__(
         self,
@@ -125,6 +137,8 @@ class MappabilityEngine:
         batch_blocks: int = 256,
         tiers: tuple[Tier, ...] = DEFAULT_TIERS,
         batch_kmers: int = 0,
+        dedup: bool = True,
+        light: bool = False,
         device="cuda",
     ):
         if len(data.parts) != 1:
@@ -136,33 +150,94 @@ class MappabilityEngine:
         self.data = data
         self.batch_blocks = batch_blocks
         self.batch_kmers = batch_kmers
+        self.dedup = dedup
+        self.light = light
         self.tiers = tuple(tiers)
         self.dtext = DeviceText.from_host(data, self.device)
-        # light: the SA samples only serve locate (CSV / -ep), not ported yet
-        self.index = DeviceIndex.from_part(data, data.parts[0], light=True,
+        self.index = DeviceIndex.from_part(data, data.parts[0], light=light,
                                            device=self.device)
         self.layouts = file_layouts(data)
+        self._text = None
         self._runners: dict = {}
+        # unique-infix probe (see _execute_blocks); off for A-B comparisons
+        self._probe_enabled = True
+        # probe scan cut: stop at log4(2n) + slack chars (None = full scan)
+        self._probe_cut_slack = 14
+        # SA rows per locate launch (the plain CPU path walks all rows of a
+        # chunk at once, so it takes smaller chunks)
+        self._locate_chunk = (1 << 20) if self.device.type == "cuda" else (1 << 14)
+        self._dup_rate_cache: dict = {}
         # per-compute overflow/tier statistics + phase timers (device time
         # lands in fetch_s: the result copy waits for the device)
         self.stats = {
             "overflow_blocks": 0, "max_tier": 0, "batches": 0,
             "dispatch_s": 0.0, "fetch_s": 0.0, "scatter_s": 0.0,
+            "probe_skipped": 0,
             "tier_blocks": {},  # blocks PROCESSED per tier index
         }
+        # global sequence id -> file ordinal, for exclude-pseudo
+        self.seq_file_id = np.zeros(data.nseq, dtype=np.int64)
+        fid = 0
+        for k in range(1, data.nseq):
+            if data.seq_files[k] != data.seq_files[k - 1]:
+                fid += 1
+            self.seq_file_id[k] = fid
+        self.n_files = fid + 1
+
+    @property
+    def text(self) -> np.ndarray:
+        """Host-decoded concatenated text, materialized on first use (needle
+        windows are extracted on the device from the packed text; only the
+        dedup key pass reads host text, one file's slice at a time)."""
+        if self._text is None:
+            self._text = self.data.decode_text()
+        return self._text
 
     def resident_bytes(self) -> int:
         """Bytes of index and text held on the device."""
         return self.index.resident_bytes() + self.dtext.resident_bytes()
 
-    def _runner(self, K, errors, o, J, B, tier, cap, rev_compl) -> BlockMapper:
-        key = (K, errors, o, J, B, tier, cap, rev_compl)
+    def _runner(self, K, errors, o, J, B, tier, cap, rev_compl, with_states=False,
+                with_exact=False, probe=False, probe_cut=None) -> BlockMapper:
+        key = (K, errors, o, J, B, tier, cap, rev_compl, with_states,
+               with_exact, probe, probe_cut)
         if key not in self._runners:
             self._runners[key] = BlockMapper(
                 self.index, self.dtext, K=K, errors=errors, overlap=o, J=J,
                 B=B, tier=tier, cap=cap, rev_compl=rev_compl,
+                with_states=with_states, with_exact=with_exact, probe=probe,
+                probe_cut=probe_cut,
             )
         return self._runners[key]
+
+    def _map_seq_ids(self, i1: np.ndarray) -> np.ndarray:
+        """Map part-local sequence ids to global ids (rc half after all fwd)."""
+        part = self.data.parts[0]
+        np_, off = part.nseq_part, part.seq_off
+        i1 = i1.astype(np.int64)
+        return np.where(i1 < np_, off + i1, self.data.nseq + off + (i1 - np_))
+
+    def locate_many(self, positions: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Resolve SA rows to GLOBAL (seq_no, seq_pos), chunked on the device."""
+        if self.light:
+            raise RuntimeError(
+                "locate is unavailable on a light engine (SA samples were not "
+                "uploaded); construct MappabilityEngine(light=False) for "
+                "CSV/exclude-pseudo runs"
+            )
+        n = len(positions)
+        i1 = np.empty(n, dtype=np.uint32)
+        i2 = np.empty(n, dtype=np.uint32)
+        ch = self._locate_chunk
+        dev = self.device
+        for s in range(0, n, ch):
+            part = np.ascontiguousarray(positions[s : s + ch], dtype=np.uint32)
+            pos = torch.from_numpy(part.view(np.int32)).to(dev)
+            valid = torch.ones(len(part), dtype=torch.uint8, device=dev)
+            r1, r2 = locate(self.index, pos, valid)
+            i1[s : s + len(part)] = _u32(r1)
+            i2[s : s + len(part)] = _u32(r2)
+        return self._map_seq_ids(i1), i2
 
     # ------------------------------------------------------------------
 
@@ -173,10 +248,11 @@ class MappabilityEngine:
         errors: int,
         cap: int,
         intervals: list[tuple[int, int]] | None = None,
+        csv: bool = False,
         file_no: int = 1,
         total_files: int = 1,
     ) -> FileResult:
-        """Compute the frequency vector of one file.
+        """Compute the frequency vector (and CSV locations) for one file.
 
         `intervals` are cumulative [begin, end) position ranges within the
         file (BED selection, mappability.hpp:276-365); None = whole file.
@@ -186,10 +262,12 @@ class MappabilityEngine:
         J = K - o + 1
         L = layout.length
         c = np.zeros(L, dtype=np.uint32)
+        locations: dict = {}
+        csv_needed = csv or params.exclude_pseudo
 
         nkmers = L - K + 1
         if nkmers <= 0:
-            return FileResult(c=c, layout=layout)
+            return FileResult(c=c, locations=locations, layout=layout)
 
         # block starts + per-block k-mer counts (algo.hpp:434-451)
         if intervals is None:
@@ -207,30 +285,48 @@ class MappabilityEngine:
             starts, ends = starts[keep], ends[keep]
         cnts = (ends - starts).astype(np.int32)
         if len(starts) == 0:
-            return FileResult(c=c, layout=layout)
+            return FileResult(c=c, locations=locations, layout=layout)
 
         progress = Progress(len(starts), file_no, total_files)
-        self._execute_blocks(c, layout, starts, cnts, K, o, J, errors, cap,
-                             params, progress)
+        done = False
+        if self.dedup and intervals is None and not csv_needed and nkmers >= 8192:
+            # the dedup key pass is the only host-side reader of the text
+            text = self.data.decode_slice(layout.start, L)
+            done = self._compute_with_dedup(
+                text, c, locations, layout, starts, cnts, K, o, J, errors,
+                cap, params, progress, nkmers,
+            )
+        if not done:
+            self._execute_blocks(c, locations, layout, starts, cnts, K, o, J,
+                                 errors, cap, params, csv_needed, csv, progress)
         progress.finish()
         reset_limits(c, K, layout.cum_lens)
-        return FileResult(c=c, layout=layout)
+        return FileResult(c=c, locations=locations, layout=layout)
 
     # ------------------------------------------------------------------
 
-    def _execute_blocks(self, c, layout, starts, cnts, K, o, J, errors, cap,
-                        params, progress=None):
-        """Run the tier-escalating batch loop over the given blocks."""
+    def _execute_blocks(self, c, locations, layout, starts, cnts, K, o, J,
+                        errors, cap, params, csv_needed, csv, progress=None,
+                        collect_exact=None):
+        """Run the probe and the tier-escalating batch loop over the blocks.
+
+        `collect_exact`, if given, is (E_flo, E_size) — arrays of length
+        nkmers that receive each position's zero-error SA interval (the
+        duplicate-class key of the dedup pass).
+        """
+        self.stats["probe_skipped"] = 0
         self.stats["tier_blocks"] = {}
+        job = _Job(c, locations, layout, starts, cnts, K, o, J, errors, cap,
+                   params, csv_needed, csv, collect_exact)
         plans = plans_for(errors, o)
         n_max = self.index.n_total
         B0 = max(self.batch_blocks, -(-self.batch_kmers // J))
+        levels = max(1, math.ceil(math.log2(max(2, J))))
 
         def block_cost(tier):
             """(time_cost, peak_slots) per block at this tier: time ~ the
             state slots stepped (pool sizes plus extension steps), memory ~
             the widest live state tensor."""
-            levels = max(1, math.ceil(math.log2(max(2, J))))
             pools = infix_pool_schedule(plans, K - o, n_max, tier.f_search / 4.0)
             cost = int(pools.sum()) + J * levels * tier.f_extend
             peak = max(int(pools.max()), J * tier.f_extend)
@@ -244,6 +340,58 @@ class MappabilityEngine:
             # branch survivors of the infix are expected: start the extension
             # frontier at 4 slots instead of overflowing most blocks
             tiers[0] = dataclasses.replace(tiers[0], f_extend=4)
+
+        pending = np.arange(len(starts), dtype=np.int64)
+        start_tier = 0  # probe residuals start at the first exact tier
+
+        # ---- unique-infix short-circuit probe ---------------------------
+        # If a block's infix survivor mass is 1, the only candidate
+        # occurrence of every one of its k-mers is the self-match, so all J
+        # frequencies are exactly 1 and the extension is skipped.  Worth it
+        # when the extension costs at least half the infix scan and the
+        # genome is mostly unique; the first batch's skip share decides.
+        probe_ok = (
+            self._probe_enabled
+            and collect_exact is None
+            and not csv_needed
+            and J >= 2
+            and len(pending) * J >= 1 << 15
+        )
+        if probe_ok:
+            tier0 = tiers[0]
+            pools0 = infix_pool_schedule(plans, K - o, n_max, tier0.f_search / 4.0)
+            # probe cut: mass only shrinks as chars are consumed, and past
+            # ~log4(2n)+slack chars almost every undecided block is a true
+            # repeat block the probe could never skip
+            probe_cut = None
+            if self._probe_cut_slack is not None:
+                cut = math.ceil(math.log(max(2, 2 * n_max), 4)) + self._probe_cut_slack
+                if len(pools0) - cut >= 6:
+                    probe_cut = cut
+            eff = pools0 if probe_cut is None else pools0[:probe_cut]
+            infix_cost = int(eff.sum())
+            probe_ok = J * levels * tier0.f_extend >= 0.5 * max(1, infix_cost)
+        if probe_ok:
+            # the probe's per-block cost is a fraction of the full
+            # program's, so its batches may exceed the caller's block budget
+            Bp = max(32, min(8 * B0, WORK // max(1, infix_cost),
+                             SLOTS // max(1, int(eff.max()))))
+            pending, abandoned = self._probe(job, pending, tier0, probe_cut, Bp,
+                                             progress)
+            if not abandoned:
+                # probe residuals are repeat-context blocks: ~all of them
+                # far-flag the fast tier, and all carry survivor mass >= 2,
+                # so they start at the first exact tier with a 4-slot,
+                # fast-rank extension frontier (its intervals are bounded by
+                # the survivor mass and fit the one-row window)
+                for j in range(1, len(tiers)):
+                    if tiers[j].exact:
+                        start_tier = j
+                        tiers[j] = dataclasses.replace(
+                            tiers[j], f_extend=max(4, tiers[j].f_extend),
+                            ext_exact=False,
+                        )
+                        break
 
         # tier routing: capacity-overflow blocks skip ahead to the next tier
         # whose capacities are actually LARGER than the program they just
@@ -265,7 +413,7 @@ class MappabilityEngine:
         def tier_B(t_j, npend):
             cost, peak = block_cost(tiers[t_j])
             B = max(8, min(B0, WORK // max(1, cost), SLOTS // max(1, peak)))
-            if t_j == 0:
+            if t_j == start_tier:
                 # shrink (power-of-two quantized) when few blocks remain
                 if npend < B:
                     B = min(B, max(256, 1 << int(np.ceil(np.log2(max(2, npend))))))
@@ -281,7 +429,7 @@ class MappabilityEngine:
             return B
 
         pending_at = [np.empty(0, np.int64) for _ in tiers]
-        pending_at[0] = np.arange(len(starts), dtype=np.int64)
+        pending_at[start_tier] = pending
         # unresolved blocks, split by whether they actually RAN at the last
         # tier (vs. fell off the routing table earlier) — decides whether the
         # static rescue pass can still help
@@ -292,10 +440,9 @@ class MappabilityEngine:
             if len(pending) == 0:
                 continue
             B = tier_B(t_i, len(pending))
-            run = self._runner(K, errors, o, J, B, tier, cap, params.rev_compl)
             far_blocks, cap_blocks = self._run_blocks(
-                run, pending, B, c, layout, starts, cnts, K, J, t_i,
-                progress if t_i == 0 else None,
+                job, tier, pending, B, t_i,
+                progress if t_i == start_tier else None,
             )
             if len(far_blocks):
                 if t_i + 1 < len(tiers):
@@ -327,35 +474,103 @@ class MappabilityEngine:
                 ids = np.unique(np.concatenate(rescue))
                 cost, peak = block_cost(pristine)
                 B = max(8, min(B0, WORK // max(1, cost), SLOTS // max(1, peak), 1024))
-                run = self._runner(K, errors, o, J, B, pristine, cap,
-                                   params.rev_compl)
-                far_b, cap_b = self._run_blocks(
-                    run, ids, B, c, layout, starts, cnts, K, J, last, None
-                )
-                still += [far_b, cap_b]
+                still += self._run_blocks(job, pristine, ids, B, last, None)
             n_still = sum(len(a) for a in still)
             if n_still:
                 raise RuntimeError(
                     f"{n_still} blocks overflowed the largest frontier tier"
                 )
 
-    def _run_blocks(self, run, ids, B, c, layout, starts, cnts, K, J, t_i,
-                    progress):
-        """Run the blocks `ids` through one mapper in batches of B; scatter
-        the resolved ones and return (far-only, capacity) overflow ids."""
+    def _probe(self, job, pending, tier0, probe_cut, Bp, progress):
+        """Probe `pending` in batches of Bp at tier0: skipped blocks get
+        frequency 1 written; returns (residual block ids, abandoned).  After
+        the first batch, a skip share below 0.3 abandons the probe (a repeat
+        heavy genome or configuration would pay a second infix pass for
+        most blocks); the remaining blocks all become residual."""
         stats = self.stats
+        run = self._runner(job.K, job.errors, job.o, job.J, Bp, tier0, job.cap,
+                           job.params.rev_compl, probe=True, probe_cut=probe_cut)
+        residual: list[np.ndarray] = []
+        abandoned = False
+        skipped = 0
+        J = job.J
+        for s in range(0, len(pending), Bp):
+            sel = pending[s : s + Bp]
+            if abandoned:
+                residual.append(sel)
+                continue
+            t0 = time.perf_counter()
+            out = self._run_batch(run, job.layout, job.starts[sel], job.cnts[sel], Bp)
+            t1 = time.perf_counter()
+            skip = out["skip"].cpu().numpy()[: len(sel)].astype(bool)
+            t2 = time.perf_counter()
+            # vectorized frequency-1 writes
+            idx = np.nonzero(skip)[0]
+            bst = job.starts[sel[idx]]
+            bcn = job.cnts[sel[idx]]
+            full = bcn == J
+            if full.any():
+                job.c[(bst[full][:, None] + np.arange(J)).ravel()] = 1
+            for s0, cn in zip(bst[~full], bcn[~full]):
+                job.c[int(s0) : int(s0) + int(cn)] = 1
+            residual.append(sel[~skip])
+            skipped += len(idx)
+            stats["dispatch_s"] += t1 - t0
+            stats["fetch_s"] += t2 - t1
+            stats["scatter_s"] += time.perf_counter() - t2
+            stats["batches"] += 1
+            if progress is not None:
+                progress.add(len(idx))
+            if s == 0 and skip.mean() < 0.3:
+                abandoned = True
+        stats["probe_skipped"] = skipped
+        pending = np.concatenate(residual) if residual else np.empty(0, np.int64)
+        return pending, abandoned
+
+    def _run_blocks(self, job, tier, ids, B, t_i, progress):
+        """Run the blocks `ids` at one tier in batches of B; scatter the
+        resolved ones (frequencies, CSV locations, zero-error keys) and
+        return (far-only, capacity) overflow ids."""
+        stats = self.stats
+        run = self._runner(job.K, job.errors, job.o, job.J, B, tier, job.cap,
+                           job.params.rev_compl, with_states=job.csv_needed,
+                           with_exact=job.collect_exact is not None)
         still_far: list[np.ndarray] = []
         still_cap: list[np.ndarray] = []
         for s in range(0, len(ids), B):
             sel = ids[s : s + B]
+            nb = len(sel)
             t0 = time.perf_counter()
-            out = self._run_batch(run, layout, starts[sel], cnts[sel], B)
+            out = self._run_batch(run, job.layout, job.starts[sel], job.cnts[sel], B)
             t1 = time.perf_counter()
-            hits = out["hits"].cpu().numpy()
-            ovf = out["overflow"].cpu().numpy()[: len(sel)]
-            ovfc = out["overflow_cap"].cpu().numpy()[: len(sel)]
+            res = {k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
+                       else v.cpu().numpy())
+                   for k, v in out.items()}
             t2 = time.perf_counter()
-            self._scatter_batch(c, hits, starts[sel], cnts[sel], ~ovf)
+            ovf = res["overflow"][:nb]
+            ovfc = res["overflow_cap"][:nb]
+            bstarts, bcnts = job.starts[sel], job.cnts[sel]
+            self._scatter_batch(job.c, res["hits"], bstarts, bcnts, ~ovf)
+            for k in ("exact_size", "exact_size_total", "exact_flo"):
+                if k in res:
+                    res[k] = res[k].view(np.uint32)
+            if job.csv_needed:
+                flo, size, err, valid = res["states"]
+                per_part = [(res["exact_size_total"], res["exact_flo"],
+                             (flo.view(np.uint32), size.view(np.uint32), err,
+                              valid.astype(bool)))]
+                self._csv_batch(
+                    job.c, job.locations, bstarts, bcnts, ~ovf, per_part,
+                    res["exact_size"].astype(np.int64), job.layout, job.params,
+                    job.K, job.errors, job.cap, job.csv,
+                )
+            if job.collect_exact is not None:
+                E_flo, E_size = job.collect_exact
+                for bi in np.nonzero(~ovf)[0]:
+                    s0 = int(bstarts[bi])
+                    cnt = int(bcnts[bi])
+                    E_flo[s0 : s0 + cnt] = res["exact_flo"][bi, :cnt]
+                    E_size[s0 : s0 + cnt] = res["exact_size_total"][bi, :cnt]
             stats["dispatch_s"] += t1 - t0
             stats["fetch_s"] += t2 - t1
             stats["scatter_s"] += time.perf_counter() - t2
@@ -363,11 +578,11 @@ class MappabilityEngine:
             stats["overflow_blocks"] += int(ovf.sum())
             stats["max_tier"] = max(stats["max_tier"], t_i)
             tb = stats["tier_blocks"]
-            tb[t_i] = tb.get(t_i, 0) + len(sel)
+            tb[t_i] = tb.get(t_i, 0) + nb
             still_cap.append(sel[ovfc])
             still_far.append(sel[ovf & ~ovfc])
             if progress is not None:
-                progress.add(len(sel))
+                progress.add(nb)
         cat = lambda xs: np.concatenate(xs) if xs else np.empty(0, np.int64)  # noqa: E731
         return cat(still_far), cat(still_cap)
 
@@ -390,3 +605,259 @@ class MappabilityEngine:
             i0 = int(bstarts[b])
             cnt = int(bcnts[b])
             c[i0 : i0 + cnt] = hits[b, :cnt]
+
+    # ------------------------------------------------------------------
+
+    def _compute_with_dedup(
+        self, text, c, locations, layout, starts, cnts, K, o, J, errors, cap,
+        params, progress, nkmers,
+    ) -> bool:
+        """Exact-duplicate k-mer sharing (reference trick algo.hpp:236-242,
+        389-396): class every k-mer by its exact string identity, run the
+        search only on blocks containing a class's first occurrence, and
+        copy class results to all duplicate positions.
+
+        Class keys: the packed k-mer value (K <= 27) or — for larger K when a
+        sample says duplicates are frequent — the zero-error SA interval
+        (flo, size) from a cheap e=0 pre-pass, which uniquely identifies the
+        k-mer string among k-mers that match themselves.  Returns False
+        when dedup is not worthwhile (the caller runs normally).
+        """
+        if K <= 27 and nkmers <= (1 << 31):
+            # cheap sampled gate first: full key building + np.unique over
+            # all k-mers costs seconds at genome scale
+            if nkmers > (1 << 21) and self._dup_rate(layout, text, K, nkmers) < 0.15:
+                return False
+            keys = np.zeros(nkmers, dtype=np.uint64)
+            for i in range(K):
+                keys *= np.uint64(5)
+                keys += text[i : i + nkmers]
+            classes, inverse = np.unique(keys, return_inverse=True)
+            del keys
+        else:
+            if errors == 0:
+                return False  # the e=0 pre-pass would equal the main pass
+            if self._dup_rate(layout, text, K, nkmers) < 0.3:
+                return False
+            E_flo = np.zeros(nkmers, np.uint32)
+            E_size = np.zeros(nkmers, np.uint32)
+            self._execute_blocks(
+                np.zeros_like(c), {}, layout, starts, cnts, K, o, J, 0, cap,
+                params, False, False, collect_exact=(E_flo, E_size),
+            )
+            key_arr = np.zeros((nkmers, 3), dtype=np.uint32)
+            key_arr[:, 0] = E_flo
+            key_arr[:, 1] = E_size
+            # k-mers that match nothing (they contain N: N matches nothing,
+            # not even N) are NOT identified by their interval; give each its
+            # own class via the extra column
+            nomatch = E_size == 0
+            key_arr[nomatch, 2] = np.arange(1, int(nomatch.sum()) + 1, dtype=np.uint32)
+            void = np.ascontiguousarray(key_arr).view(
+                np.dtype((np.void, key_arr.shape[1] * 4))
+            ).ravel()
+            classes, inverse = np.unique(void, return_inverse=True)
+            del key_arr, void
+
+        # first occurrence of each class (reversed write: first position wins)
+        first_occ = np.empty(len(classes), dtype=np.int64)
+        first_occ[inverse[::-1]] = np.arange(nkmers - 1, -1, -1)
+        keep = np.unique(first_occ // J)
+        if len(keep) > 0.85 * len(starts):
+            return False  # few duplicates: per-class bookkeeping not worth it
+
+        self._execute_blocks(
+            c, locations, layout, starts[keep], cnts[keep], K, o, J,
+            errors, cap, params, False, False, progress=None,
+        )
+        if progress is not None:
+            progress.add(len(starts))
+        # copy class results to every duplicate position
+        c[:nkmers] = c[first_occ[inverse]]
+        return True
+
+    def _dup_rate(self, layout, text, K, nkmers) -> float:
+        key = (layout.start, layout.length, K)
+        if key not in self._dup_rate_cache:
+            self._dup_rate_cache[key] = self._sampled_dup_rate(text, K, nkmers)
+        return self._dup_rate_cache[key]
+
+    @staticmethod
+    def _sampled_dup_rate(text, K, nkmers, sample=1 << 19) -> float:
+        rng = np.random.default_rng(12345)
+        s = min(sample, nkmers)
+        pos = rng.integers(0, nkmers, size=s)
+        win = text[pos[:, None] + np.arange(K)[None, :]]
+        nuniq = len(np.unique(np.ascontiguousarray(win).view(
+            np.dtype((np.void, K))).ravel()))
+        return 1.0 - nuniq / s
+
+    # ------------------------------------------------------------------
+
+    def _split_strand(self, i1, i2, K):
+        """Split located rows into per-strand lists with rc mapped back.
+
+        A row in the rc half (i1 >= nseq) at position p in rc(seq s) is an
+        occurrence of rc(pattern) in seq s at len_s - K - p.
+        """
+        nseq = self.data.nseq
+        is_rc = i1 >= nseq
+        p1, p2 = i1[~is_rc].astype(np.int64), i2[~is_rc].astype(np.int64)
+        m1 = (i1[is_rc] - nseq).astype(np.int64)
+        m2 = (
+            self.data.seq_lens[m1].astype(np.int64) - K - i2[is_rc].astype(np.int64)
+        )
+        o = np.lexsort((p2, p1))
+        om = np.lexsort((m2, m1))
+        return (p1[o], p2[o]), (m1[om], m2[om])
+
+    def _csv_batch(
+        self, c, locations, bstarts, bcnts, ok, per_part, exact_size,
+        layout, params, K, errors, cap, csv_out,
+    ):
+        """CSV location lists + exclude-pseudo (algo.hpp:311-400).
+
+        `per_part` is a list of (exact_size_total, exact_flo, states) per
+        index part (one here); located rows are grouped per k-mer by one
+        global lexsort over (k-mer, kind, strand), with per-key work
+        reduced to array-view slicing.
+        """
+        nb = len(bstarts)
+        J = per_part[0][2][1].shape[1] if per_part else 0
+        jmask = (np.arange(J)[None, :] < np.asarray(bcnts)[:, None]) & np.asarray(ok)[:, None]
+        kb_l, kj_l, kk_l, i1_l, i2_l = [], [], [], [], []
+        for exact_size_total, exact_flo, states in per_part:
+            flo, size, err, valid = states
+            # "all" rows: every valid state's interval; "exact" rows: the
+            # zero-error interval of k-mers with more than one forward
+            # occurrence (their key placement)
+            vm = valid[:nb] & (size[:nb] > 0) & jmask[:, :, None]
+            bs, js, fs = np.nonzero(vm)
+            szs = size[:nb][bs, js, fs].astype(np.int64)
+            flos = flo[:nb][bs, js, fs].astype(np.int64)
+
+            em = jmask & (exact_size[:nb] > 1) & (exact_size_total[:nb] > 0)
+            ebs, ejs = np.nonzero(em)
+            eszs = exact_size_total[:nb][ebs, ejs].astype(np.int64)
+            eflos = exact_flo[:nb][ebs, ejs].astype(np.int64)
+
+            all_sizes = np.concatenate([szs, eszs])
+            all_flos = np.concatenate([flos, eflos])
+            if len(all_sizes) == 0:
+                continue
+            total = int(all_sizes.sum())
+            offs = np.zeros(len(all_sizes), np.int64)
+            np.cumsum(all_sizes[:-1], out=offs[1:])
+            all_rows = np.repeat(all_flos - offs, all_sizes) + np.arange(total)
+            i1, i2 = self.locate_many(all_rows)
+
+            kb_l.append(np.repeat(np.concatenate([bs, ebs]), all_sizes))
+            kj_l.append(np.repeat(np.concatenate([js, ejs]), all_sizes))
+            kk_l.append(np.repeat(
+                np.concatenate([np.zeros(len(bs), np.int8),
+                                np.ones(len(ebs), np.int8)]),
+                all_sizes,
+            ))
+            i1_l.append(i1.astype(np.int64))
+            i2_l.append(i2.astype(np.int64))
+        if not kb_l:
+            return
+        kb = np.concatenate(kb_l)
+        kj = np.concatenate(kj_l)
+        kk = np.concatenate(kk_l)
+        g1 = np.concatenate(i1_l)
+        g2 = np.concatenate(i2_l)
+
+        nseq = self.data.nseq
+        directory = self.data.directory
+        seq_lens = self.data.seq_lens.astype(np.int64)
+        # strand split + rc coordinate mapping: a row in the rc half
+        # (i1 >= nseq) at position p in rc(seq s) is an occurrence of
+        # rc(pattern) in seq s at len_s - K - p
+        is_rc = g1 >= nseq
+        a1 = np.where(is_rc, g1 - nseq, g1)
+        a2 = np.where(is_rc, seq_lens[a1] - K - g2, g2)
+        # group rows by (b, j, kind, strand), position-sorted within
+        order = np.lexsort((a2, a1, is_rc, kk, kj, kb))
+        kb, kj, kk, a1, a2, is_rc = (
+            x[order] for x in (kb, kj, kk, a1, a2, is_rc)
+        )
+        # segment boundaries of the (b, j) groups
+        key_bj = kb.astype(np.int64) * (J + 1) + kj
+        bj_bounds = np.flatnonzero(np.diff(key_bj)) + 1
+        bj_starts = np.concatenate([[0], bj_bounds])
+        bj_ends = np.concatenate([bj_bounds, [len(kb)]])
+
+        if params.exclude_pseudo:
+            # distinct FILES per k-mer over both strands ("all" rows only;
+            # rc occurrences only count under -r/rev_compl)
+            allm = (kk == 0) & (params.rev_compl | ~is_rc)
+            bj_ids = np.cumsum(
+                np.concatenate([[0], np.diff(key_bj) != 0])
+            )  # dense group ordinal per row
+            fkey = (
+                bj_ids[allm] * np.int64(self.n_files)
+                + self.seq_file_id[a1[allm]]
+            )
+            ubj = np.unique(fkey) // self.n_files
+            cnts_f = np.bincount(ubj, minlength=int(bj_ids.max()) + 1 if len(bj_ids) else 0)
+            for s0 in bj_starts:
+                b, j = int(kb[s0]), int(kj[s0])
+                p = int(bstarts[b]) + j
+                gid = int(bj_ids[s0])
+                nf = int(cnts_f[gid]) if gid < len(cnts_f) else 0
+                c[p] = min(nf, cap)
+
+        if not csv_out:
+            return
+
+        empty = np.empty(0, np.int64)
+        for s0, e0 in zip(bj_starts, bj_ends):
+            b, j = int(kb[s0]), int(kj[s0])
+            p = int(bstarts[b]) + j
+            seg = slice(s0, e0)
+            ks, rs = kk[seg], is_rc[seg]
+            s_a1, s_a2 = a1[seg], a2[seg]
+            am = ks == 0
+            fm = am & ~rs
+            rm = am & rs
+            f1, f2 = s_a1[fm], s_a2[fm]
+            if params.rev_compl:
+                r1, r2 = s_a1[rm], s_a2[rm]
+            else:
+                r1, r2 = empty, empty
+            entry = ((f1, f2), (r1, r2))
+
+            if not directory and int(exact_size[b, j]) > 1:
+                em_ = (ks == 1) & ~rs  # key placement: fwd exact occurrences
+                q1s, q2s = s_a1[em_], s_a2[em_]
+                okq = q2s <= seq_lens[q1s] - K
+                for q1, q2 in zip(q1s[okq], q2s[okq]):
+                    locations[(int(q1), int(q2))] = entry
+            elif len(f1) + (len(r1) if params.rev_compl else 0) > 0:
+                # localize p within this file's chromosomes
+                s = int(np.searchsorted(layout.cum_lens, p, side="right") - 1)
+                i2p = p - int(layout.cum_lens[s])
+                if i2p <= int(layout.chrom_lens[s]) - K:
+                    locations[(s, i2p)] = entry
+
+
+@dataclass
+class _Job:
+    """One `_execute_blocks` call: the blocks, their configuration and
+    where the results go."""
+
+    c: np.ndarray
+    locations: dict
+    layout: FileLayout
+    starts: np.ndarray
+    cnts: np.ndarray
+    K: int
+    o: int
+    J: int
+    errors: int
+    cap: int
+    params: SearchParams
+    csv_needed: bool
+    csv: bool
+    collect_exact: tuple | None

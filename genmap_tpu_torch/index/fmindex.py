@@ -391,6 +391,31 @@ class FMIndexData:
     def nseq(self) -> int:
         return len(self.seq_names)
 
+    # ---- text access -------------------------------------------------------
+
+    def decode_text(self) -> np.ndarray:
+        """Decode the packed concatenated text to uint8 codes 0..4."""
+        return self.decode_slice(0, self.text_len)
+
+    def decode_slice(self, start: int, length: int) -> np.ndarray:
+        """Decode bases [start, start+length) without touching the rest of
+        the packed text — the engine's dedup key pass reads one file's slice,
+        and at hg38 scale a full decode is gigabytes of host RAM."""
+        length = max(0, min(length, self.text_len - start))
+        w0, w1 = start >> 4, (start + length + 15) >> 4
+        shifts = 2 * np.arange(16, dtype=np.uint32)
+        codes = (
+            (self.text_words[w0:w1, None] >> shifts[None, :]) & np.uint32(3)
+        ).astype(np.uint8).reshape(-1)[start - 16 * w0 :][:length]
+        if self.has_n and len(self.text_nwords):
+            b0, b1 = start >> 5, (start + length + 31) >> 5
+            bshifts = np.arange(32, dtype=np.uint32)
+            nbits = (
+                (self.text_nwords[b0:b1, None] >> bshifts[None, :]) & np.uint32(1)
+            ).astype(bool).reshape(-1)[start - 32 * b0 :][:length]
+            codes = np.where(nbits, np.uint8(4), codes)
+        return codes
+
     # ---- persistence -------------------------------------------------------
 
     def save(self, path: str) -> None:

@@ -1,4 +1,4 @@
-"""Output writers: raw / txt / wig / bedgraph / bed (csv is not ported yet).
+"""Output writers: raw / txt / wig / bedgraph / bed / csv.
 
 Byte-compatible with the reference writers (GenMap src/output.hpp):
   - floats are float32 reciprocals printed like C++ default operator<<
@@ -6,6 +6,7 @@ Byte-compatible with the reference writers (GenMap src/output.hpp):
   - wig: variableStep run-length, 1-based, zero runs suppressed, span header
     only when the span changes between *emitted* runs (output.hpp:91-126)
   - bedgraph/bed: 0-based half-open runs, zero runs suppressed
+  - csv: per-k-mer location lists, one column per fasta file per strand
 """
 
 from __future__ import annotations
@@ -242,3 +243,62 @@ def save_bedgraph(
                     ],
                 )
             )
+
+
+def save_csv(
+    path_prefix: str,
+    locations: dict,
+    rev_compl: bool,
+    fasta_files: list[tuple[str, int]],  # (file name, last global seq index)
+    csv_intervals: list[tuple[int, int, int]] | None,  # (chromId, begin, end) sorted
+) -> None:
+    """CSV location lists (output.hpp:189-288).
+
+    `locations`: {(chrom_i1, pos_i2): ((f_i1, f_i2), (r_i1, r_i2))} where the
+    key uses per-file chromosome ids and the value arrays use global sequence
+    ids across all indexed files.
+    """
+    output_selection = csv_intervals is not None
+
+    with open(path_prefix + ".csv", "w") as out:
+        out.write('"k-mer"')
+        for fname, _last in fasta_files:
+            out.write(f';"+ strand {fname}"')
+        if rev_compl:
+            for fname, _last in fasta_files:
+                out.write(f';"- strand {fname}"')
+        out.write("\n")
+
+        iv = 0
+        ivs = csv_intervals or []
+
+        def strand_cols(a1: np.ndarray, a2: np.ndarray) -> str:
+            cols = []
+            i = 0
+            prev_chroms = 0
+            for _fname, last in fasta_files:
+                parts = []
+                while i < len(a1) and a1[i] <= last:
+                    parts.append(f"{int(a1[i]) - prev_chroms},{int(a2[i])}")
+                    i += 1
+                cols.append("|".join(parts))
+                prev_chroms = last + 1
+            return ";".join(cols)
+
+        for (i1, i2) in sorted(locations):
+            (f1, f2), (r1, r2) = locations[(i1, i2)]
+            while iv < len(ivs) and (
+                ivs[iv][0] < i1 or (ivs[iv][0] == i1 and ivs[iv][2] <= i2)
+            ):
+                iv += 1
+            if output_selection and not (
+                iv < len(ivs)
+                and ivs[iv][0] == i1
+                and ivs[iv][1] <= i2 < ivs[iv][2]
+            ):
+                continue
+            out.write(f"{i1},{i2}")
+            out.write(";" + strand_cols(f1, f2))
+            if rev_compl:
+                out.write(";" + strand_cols(r1, r2))
+            out.write("\n")

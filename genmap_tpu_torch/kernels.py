@@ -1,13 +1,16 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Four kernels carry the main path of `map` (sources in `csrc/`, compiled
-with nvcc for sm_90a into one shared library each, loaded with ctypes):
+Six kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
+into one shared library each, loaded with ctypes):
 
   extract_needles  needle windows from the packed text
   candidate_step   FMD extension of every search state by every character,
                    complement permutation, error count and pruning
   compact          first F valid candidates of every frontier row, in order
-  count_tail       per-k-mer saturating occurrence counts (+ strand split)
+  count_tail       per-k-mer saturating occurrence counts (+ strand split),
+                   and on request each k-mer's zero-error interval
+  probe_mass       the unique-infix probe's per-plan survivor mass and skip
+  locate           SA rows to (sequence, position) by LF walks (CSV, -ep)
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it (the CPU tests' path and the reference the kernel
@@ -378,56 +381,218 @@ def compact(arrays, valid, F: int):
 COUNT_TAIL = Kernel(
     # _count_tail, with ops/rank.py:578 rc_strand_count folded in
     "count_tail", "count_tail.cu", "genmap_tpu/search/engine.py:1334",
-    [_P, _P, _L, _I, _I, _P, _P, _I, _U, _P, _P],
+    [_P, _P, _L, _I, _I, _P, _P, _I, _U, _P, _I, _P, _P, _P, _P],
 )
 
 
-def count_tail_plain(index, st, valid, cnt, J: int, cap: int, rev_compl: bool):
+def count_tail_plain(index, st, valid, cnt, J: int, cap: int, rev_compl: bool,
+                     with_exact: bool = False):
     """Plain PyTorch version of `count_tail`."""
     B = cnt.shape[0]
     v = valid.bool().reshape(B, J, -1)
-    flo = rank.u32(st[0]).reshape(B, J, -1)
-    size = rank.u32(st[2]).reshape(B, J, -1)
-    flo = torch.where(v, flo, 0)
-    size = torch.where(v, size, 0)
-    if rev_compl:
-        counting = size
-    else:
+    flo = torch.where(v, rank.u32(st[0]).reshape(B, J, -1), 0)
+    size = torch.where(v, rank.u32(st[2]).reshape(B, J, -1), 0)
+    if not rev_compl or with_exact:
         rc_in = rank.rc_strand_count(index, flo + size) - rank.rc_strand_count(index, flo)
-        counting = (size - rc_in) & rank.MASK32
+        fwd = (size - rc_in) & rank.MASK32
+    counting = size if rev_compl else fwd
     contrib = torch.where(v, counting.clamp(max=cap), 0)
     hits = contrib.sum(dim=-1).clamp(max=cap)
     valid_j = torch.arange(J, device=cnt.device)[None, :] < cnt[:, None]
-    return torch.where(valid_j, hits, 0).to(torch.uint16)
+    hits = torch.where(valid_j, hits, 0).to(torch.uint16)
+    if not with_exact:
+        return hits
+    em = v & (st[3].reshape(B, J, -1) == 0)
+
+    def esum(x):
+        return torch.where(em, x, 0).sum(dim=-1) & rank.MASK32
+
+    return (hits, rank.as_i32(torch.where(valid_j, esum(fwd), 0)),
+            rank.as_i32(torch.where(valid_j, esum(size), 0)),
+            rank.as_i32(esum(flo)))
 
 
-def count_tail(index, st, valid, cnt, J: int, cap: int, rev_compl: bool):
+def count_tail(index, st, valid, cnt, J: int, cap: int, rev_compl: bool,
+               with_exact: bool = False):
     """Per-k-mer frequency of the final extension states.
 
-    st: [R>=3, B*J*Fe] int32 rows flo, rlo, size...; valid [B*J*Fe] uint8;
-    cnt [B] int32 valid k-mers per block.  Sums min(size, cap) over the valid
-    states of each k-mer, saturating at cap; with rev_compl=False the
-    reverse-strand rows of each interval (strand rank rows) are subtracted
-    first.  Returns hits [B, J] uint16, zero for k-mers >= cnt."""
+    st: [R>=3, B*J*Fe] int32 rows flo, rlo, size, err...; valid [B*J*Fe]
+    uint8; cnt [B] int32 valid k-mers per block.  Sums min(size, cap) over
+    the valid states of each k-mer, saturating at cap; with rev_compl=False
+    the reverse-strand rows of each interval (strand rank rows) are
+    subtracted first.  Returns hits [B, J] uint16, zero for k-mers >= cnt.
+
+    with_exact (R >= 4) also returns, summed mod 2^32 over the valid states
+    with err == 0, exact_size (forward-strand size), exact_size_total (size)
+    — both [B, J] int32 holding uint32, zero for k-mers >= cnt — and
+    exact_flo (interval start, not masked): (hits, exact_size,
+    exact_size_total, exact_flo)."""
     if not st.is_cuda:
-        return count_tail_plain(index, st, valid, cnt, J, cap, rev_compl)
+        return count_tail_plain(index, st, valid, cnt, J, cap, rev_compl,
+                                with_exact)
     dev = st.device
     B = cnt.shape[0]
     N = valid.numel()
     if B * J == 0 or N % (B * J):
         raise ValueError(f"count_tail: {N} states do not split into {B}x{J} k-mers")
+    if with_exact and st.shape[0] < 4:
+        raise ValueError("count_tail: with_exact needs the err row (R >= 4)")
     Fe = N // (B * J)
     _check(st, "st", torch.int32, device=dev)
     _check(valid, "valid", torch.uint8, device=dev)
     _check(cnt, "cnt", torch.int32, (B,), dev)
     _check(index.strand_blocks, "strand_blocks", torch.int32, device=dev)
     hits = torch.empty((B, J), dtype=torch.uint16, device=dev)
+    ex = [torch.empty((B, J), dtype=torch.int32, device=dev)
+          for _ in range(3 if with_exact else 0)]
+    ptrs = [t.data_ptr() for t in ex] or [None, None, None]
     COUNT_TAIL.launch(
         st.data_ptr(), valid.data_ptr(), B * J, Fe, J, cnt.data_ptr(),
         index.strand_blocks.data_ptr(), int(rev_compl), int(cap),
-        hits.data_ptr(), _stream(st),
+        hits.data_ptr(), int(with_exact), *ptrs, _stream(st),
     )
-    return hits
+    return (hits, *ex) if with_exact else hits
 
 
-KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT, COUNT_TAIL)}
+# ---------------------------------------------------------------------------
+# 5. probe_mass
+# ---------------------------------------------------------------------------
+
+PROBE_MASS = Kernel(
+    # the probe branch of block_mapper_impl (mass_p, nwin, skip test)
+    "probe_mass", "probe_mass.cu", "genmap_tpu/search/engine.py:1251",
+    [_P, _P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+)
+PROBE_MAX_PLANS = 16
+
+
+def probe_mass_plain(st, valid, ovf, needles, thr, has_n: bool,
+                     with_mass: bool = False):
+    """Plain PyTorch version of `probe_mass`."""
+    _R, B, F = st.shape
+    P = thr.shape[0]
+    plan = st[4].to(torch.int64)
+    inplan = valid.bool() & (plan >= 0) & (plan < P)
+    mass = torch.zeros((B, P), dtype=torch.int64, device=st.device).scatter_add_(
+        1, plan.clamp(0, P - 1), torch.where(inplan, rank.u32(st[2]), 0)
+    ).clamp(max=rank.MASK32)
+    if has_n:
+        nwin = (needles == 4).any(dim=-1)
+    else:
+        nwin = torch.zeros(B, dtype=torch.bool, device=st.device)
+    skip = ((mass <= thr.to(torch.int64)[None, :]).all(dim=-1)
+            & ~ovf.bool() & ~nwin).to(torch.uint8)
+    if not with_mass:
+        return skip
+    return skip, rank.as_i32(mass), nwin.to(torch.uint8)
+
+
+def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = False):
+    """The unique-infix probe's skip decision of every block.
+
+    st: [5, B, F] int32 infix survivor states (size row 2, plan id row 4);
+    valid [B, F] uint8; ovf [B] uint8 (capacity or far overflow of the
+    scan); needles [B, Ln] uint8; thr [P] int32 per-plan mass thresholds
+    (`probe_thresholds`).  A block is skipped when every plan's summed
+    survivor size is <= thr[p], it did not overflow and (Dna5) its needle
+    window holds no N.  Masses are summed in 64 bits and saturate at
+    2^32 - 1.  Returns skip [B] uint8, or with with_mass (skip, mass_p [B, P]
+    int32 holding uint32, nwin [B] uint8)."""
+    if not st.is_cuda:
+        return probe_mass_plain(st, valid, ovf, needles, thr, has_n, with_mass)
+    dev = st.device
+    R, B, F = st.shape
+    P = thr.shape[0]
+    if R != 5 or not 1 <= P <= PROBE_MAX_PLANS:
+        raise ValueError(f"probe_mass: bad geometry R={R} P={P}")
+    Ln = needles.shape[1]
+    _check(st, "st", torch.int32, device=dev)
+    _check(valid, "valid", torch.uint8, (B, F), dev)
+    _check(ovf, "ovf", torch.uint8, (B,), dev)
+    _check(needles, "needles", torch.uint8, (B, Ln), dev)
+    _check(thr, "thr", torch.int32, (P,), dev)
+    skip = torch.empty((B,), dtype=torch.uint8, device=dev)
+    mass = torch.empty((B, P), dtype=torch.int32, device=dev) if with_mass else None
+    nwin = torch.empty((B,), dtype=torch.uint8, device=dev) if with_mass else None
+    PROBE_MASS.launch(
+        st.data_ptr(), valid.data_ptr(), B, F, P, ovf.data_ptr(),
+        needles.data_ptr(), Ln, int(has_n), thr.data_ptr(), skip.data_ptr(),
+        mass.data_ptr() if with_mass else None,
+        nwin.data_ptr() if with_mass else None, _stream(st),
+    )
+    return (skip, mass, nwin) if with_mass else skip
+
+
+# ---------------------------------------------------------------------------
+# 6. locate
+# ---------------------------------------------------------------------------
+
+LOCATE = Kernel(
+    # locate, with ops/rank.py:589 bwt_char folded in
+    "locate", "locate.cu", "genmap_tpu/ops/rank.py:617",
+    [_P, _I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _I, _P, _P, _P],
+)
+
+
+def locate_plain(index, pos, valid):
+    """Plain PyTorch version of `locate`."""
+    subw = sub_width(index.has_n)
+    C = rank.u32(index.C)
+    p = rank.u32(pos)
+    steps = torch.zeros_like(p)
+    done = ~valid.bool()
+    for _ in range(index.sampling):
+        irows = rank.u32(index.ind_blocks[p >> 7])
+        off = p & 127
+        ibit = (irows[:, 1:].gather(1, (off >> 5)[:, None])[:, 0] >> (off & 31)) & 1
+        now_done = (ibit == 1) & ~done
+        sub = index.fwd_blocks[p >> 9, :subw]
+        code, _sbit = rank.bwt_char(sub, p, index.has_n)
+        occ, _sent = rank._occ_sub(sub, p, index.has_n)
+        p_next = (C[code] + occ.gather(1, code[:, None])[:, 0]) & rank.MASK32
+        stay = done | now_done
+        p = torch.where(stay, p, p_next)
+        steps = torch.where(stay, steps, steps + 1)
+        done = stay
+    irows = rank.u32(index.ind_blocks[p >> 7])
+    bmask = rank._bit_masks(p & 127, rank.BVWORDS)
+    irank = (irows[:, 0] + rank._popcount_sum(irows[:, 1:] & bmask)) & rank.MASK32
+    vidx = torch.where(valid.bool(), irank, 0).clamp(max=index.sa_i1.shape[0] - 1)
+    i1 = index.sa_i1[vidx]
+    i2 = rank.as_i32(rank.u32(index.sa_i2[vidx]) + steps)
+    return i1, i2
+
+
+def locate(index, pos, valid):
+    """(seq, pos) of SA rows by LF walks of at most `index.sampling` steps
+    to a sampled row.
+
+    pos: [N] int32 (uint32 SA rows of the part); valid [N] uint8 (invalid
+    rows read sample 0 and take no step).  Needs a full (non-light) index.
+    Returns (i1, i2) [N] int32 holding uint32: the part-local sequence
+    number (rc half after all forward sequences) and the position in it."""
+    if index.sa_i1.shape[0] == 0:
+        raise RuntimeError("locate needs the SA samples: upload the index "
+                           "with light=False")
+    if not pos.is_cuda:
+        return locate_plain(index, pos, valid)
+    dev = pos.device
+    N = pos.shape[0]
+    _check(pos, "pos", torch.int32, (N,), dev)
+    _check(valid, "valid", torch.uint8, (N,), dev)
+    for name in ("fwd_blocks", "C", "ind_blocks", "sa_i1", "sa_i2"):
+        _check(getattr(index, name), name, torch.int32, device=dev)
+    i1 = torch.empty((N,), dtype=torch.int32, device=dev)
+    i2 = torch.empty((N,), dtype=torch.int32, device=dev)
+    LOCATE.launch(
+        index.fwd_blocks.data_ptr(), index.fwd_blocks.shape[1],
+        int(index.has_n), index.C.data_ptr(), index.ind_blocks.data_ptr(),
+        index.sa_i1.data_ptr(), index.sa_i2.data_ptr(), index.sa_i1.shape[0],
+        pos.data_ptr(), valid.data_ptr(), N, index.sampling, i1.data_ptr(),
+        i2.data_ptr(), _stream(pos),
+    )
+    return i1, i2
+
+
+KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
+                               COUNT_TAIL, PROBE_MASS, LOCATE)}

@@ -172,9 +172,9 @@ class DeviceIndex:
     ) -> "DeviceIndex":
         """Upload one part from its host arrays: `blocks` are the rank
         SUB-rows of `index/fmindex.py` (paired here), `C` the [6] C array.
-        The SA samples and indicator rows are only read by locate (not in
-        this package yet); pass None to skip them.  The seed tables are
-        built on the device."""
+        The SA samples and indicator rows are only read by `locate` (CSV,
+        exclude-pseudo); pass None to skip them.  The seed tables are built
+        on the device."""
         dev = resolve_device(device)
         light = sa_i1 is None
         C = np.asarray(C)
@@ -342,6 +342,32 @@ def rc_strand_count(index: DeviceIndex, p: torch.Tensor) -> torch.Tensor:
     rows = index.strand_blocks[p >> 7]
     bmask = _bit_masks(p & 127, BVWORDS)
     return (u32(rows[..., 0]) + _popcount_sum(u32(rows[..., 1 : 1 + BVWORDS]) & bmask)) & MASK32
+
+
+def bwt_char(sub: torch.Tensor, p: torch.Tensor, has_n: bool):
+    """(code, is_sentinel) of BWT position p from its covering sub-row
+    (int64 values; an N reads as code 4)."""
+    off = p & 511
+    word = u32(sub[..., S_WORDS : S_WORDS + SUBWORDS].gather(-1, (off >> 4)[..., None]))[..., 0]
+    code = (word >> ((off & 15) * 2)) & 3
+    bidx = (off >> 5)[..., None]
+    bsh = off & 31
+    sbit = (u32(sub[..., S_SBITS : S_SBITS + SUBBITS].gather(-1, bidx))[..., 0] >> bsh) & 1
+    if has_n:
+        cn = _col_ncnt(has_n)
+        nbit = (u32(sub[..., cn + 1 : cn + 1 + SUBBITS].gather(-1, bidx))[..., 0] >> bsh) & 1
+        code = torch.where(nbit == 1, 4, code)
+    return code, sbit
+
+
+def locate(index: DeviceIndex, pos: torch.Tensor, valid: torch.Tensor):
+    """Resolve SA rows to (seq_no, seq_pos) via LF walks to a sampled row
+    (the `locate` kernel; SeqAn's getOccurrences on the sampled compressed
+    SA).  pos [N] int32 holding uint32, valid [N] uint8 masks padding rows.
+    Sequence numbers are part-local (the caller maps them to global ids)."""
+    from genmap_tpu_torch import kernels
+
+    return kernels.locate(index, pos, valid)
 
 
 # ---------------------------------------------------------------------------

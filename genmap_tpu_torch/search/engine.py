@@ -1,8 +1,8 @@
 """Lockstep (k,e)-search over blocks of adjacent k-mers, on torch tensors.
 
-Port of `genmap_tpu/search/engine.py` (the mono-row path without the probe,
-the split pipeline or the dimer table; those only change speed, never
-results):
+Port of `genmap_tpu/search/engine.py` (the mono-row path with the
+unique-infix probe, without the split pipeline or the dimer table; those
+only change speed, never results):
 
   * a batch of B blocks is processed at once; each block contributes one
     common overlap infix that is searched with every optimal search scheme
@@ -16,6 +16,9 @@ results):
     [B, nodes, Fe] states, and counted (`kernels.count_tail`)
   * frontier overflows are flagged per block and re-run at a higher capacity
     tier by the host — semantics stay exact, capacity only affects speed
+  * the probe mode runs (a prefix of) the infix scan only and decides per
+    block whether its survivor mass proves every k-mer frequency 1
+    (`kernels.probe_mass`), so the host can skip the extension
 
 PyTorch runs eagerly, so the JAX package's `lax.scan` segments are Python
 loops over steps; per-step plan attributes (needle position, direction,
@@ -59,6 +62,11 @@ class Tier:
     f_collect: int
     f_extend: int
     exact: bool = True
+    # extension-phase rank mode override (None = follow `exact`).  Probe
+    # residual cohorts run an exact infix but a fast one-row extension:
+    # extension intervals are bounded by the block's survivor mass, so the
+    # fast window almost always fits.
+    ext_exact: bool | None = None
 
 
 DEFAULT_TIERS = (
@@ -166,6 +174,19 @@ def extension_extra_estimate(plans, infix_off, n_total) -> float:
     return extra
 
 
+def probe_thresholds(plans, infix_off, cut=None) -> np.ndarray:
+    """Per-plan mass thresholds for the unique-infix probe's skip test.
+
+    thr[p] = 1 for plans whose cumulative l-bound is still 0 after `cut`
+    consumed chars (the self-match survives there), else 0 (any surviving
+    row is a genuine second occurrence).  `cut=None` means the full scan.
+    """
+    _pos, _right, _u, lreq_s = _plan_schedule(plans, infix_off)
+    T = lreq_s.shape[0]
+    t = T if cut is None else max(1, min(T, int(cut)))
+    return (lreq_s[:t].max(axis=0) == 0).astype(np.uint32)
+
+
 def _compact(st, valid, F: int):
     """Keep the first F valid states of every row ([R, rows, M] -> F),
     in order; returns (st, valid, overflowed [rows] bool)."""
@@ -202,8 +223,54 @@ class _InfixSchedule:
         self.act = torch.ones(self.P, dtype=torch.uint8, device=dev)
 
 
+def initial_states(index: DeviceIndex, sched: _InfixSchedule, needles,
+                   t_seed: int, Fp: int, n_total: int):
+    """The infix scan's starting pool ((st [5, B, Fp], valid [B, Fp])): slot
+    p < P holds plan p's state after its first t_seed exact steps, looked up
+    in the seed tables (plain gathers, as in the JAX package), or the whole
+    index when t_seed = 0."""
+    B = needles.shape[0]
+    P = sched.P
+    dev = needles.device
+    st = torch.zeros((5, B, Fp), dtype=torch.int32, device=dev)
+    st[4] = (torch.arange(Fp, dtype=torch.int32, device=dev) % P)[None, :]
+    valid = torch.zeros((B, Fp), dtype=torch.uint8, device=dev)
+    if t_seed == 0:
+        st[2, :, :P] = torch.tensor(n_total, dtype=torch.int64).to(torch.int32)
+        valid[:, :P] = 1
+        return st, valid
+    off = seed_level_offset(t_seed)
+    pw = torch.as_tensor(4 ** np.arange(t_seed - 1, -1, -1, dtype=np.int64),
+                         device=dev)
+    for p in range(P):
+        a_p = int(sched.pos_np[:t_seed, p].min())
+        w = needles[:, a_p : a_p + t_seed].to(torch.int64)  # [B, t_seed]
+        okw = (w < 4).all(dim=-1)
+        wc = w.clamp(max=3)
+        code = off + (wc * pw).sum(dim=-1)
+        rc_code = off + ((3 - wc) * pw.flip(0)).sum(dim=-1)
+        size = index.seed_size[code]
+        st[0, :, p] = index.seed_mlo[code]
+        st[1, :, p] = index.seed_mlo[rc_code]
+        st[2, :, p] = size
+        valid[:, p] = (okw & (size != 0)).to(torch.uint8)
+    return st, valid
+
+
+def seed_steps(index: DeviceIndex, sched: _InfixSchedule, T: int) -> int:
+    """Infix steps replaced by the seed lookup: every plan's exact opening,
+    at most the tables' depth."""
+    t_seed = 0
+    if index.has_seed:
+        t_seed = min(index.seed_t0, T)
+        while t_seed > 0 and sched.u_np[:t_seed].max() > 0:
+            t_seed -= 1
+    return t_seed
+
+
 def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
-                  tier: Tier, n_total: int, exact_steps: int, pools):
+                  tier: Tier, n_total: int, exact_steps: int, pools,
+                  stop_at=None):
     """All search schemes over one flat per-block state POOL.
 
     Every state carries its plan id.  On a fast tier the first
@@ -212,48 +279,28 @@ def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
     states (`far`).  The seeded prefix replaces the first exact steps of
     every plan by one seed-table lookup.
 
+    `stop_at` truncates the scan to its first stop_at steps (the probe's
+    cut): survivor mass only shrinks as characters are consumed, so a mass
+    that proves frequency 1 at a prefix proves it for the whole infix.
+
     Returns ((st [5, B, F], valid [B, F]), ovf_cap [B], ovf_far [B]):
     capacity overflow and far flags are reported separately so the engine
     can route far-only blocks to the same-size exact tier and capacity
     overflows to a wider tier."""
     dev = needles.device
     P, T = sched.P, sched.T
+    if stop_at is not None:
+        T = max(1, min(T, int(stop_at)))
     S = T if tier.exact else min(T, exact_steps)
     pools = np.asarray(pools, np.int64)
 
-    t_seed = 0
-    if index.has_seed:
-        t_seed = min(index.seed_t0, T)
-        while t_seed > 0 and sched.u_np[:t_seed].max() > 0:
-            t_seed -= 1
+    t_seed = seed_steps(index, sched, T)
     S = max(S, t_seed)
     Fp = int(pools[t_seed]) if t_seed < T else int(pools[-1])
 
-    st = torch.zeros((5, B, Fp), dtype=torch.int32, device=dev)
-    st[4] = (torch.arange(Fp, dtype=torch.int32, device=dev) % P)[None, :]
+    st, valid = initial_states(index, sched, needles, t_seed, Fp, n_total)
     ovf_cap = torch.zeros(B, dtype=torch.bool, device=dev)
     ovf_far = torch.zeros(B, dtype=torch.bool, device=dev)
-    valid = torch.zeros((B, Fp), dtype=torch.uint8, device=dev)
-    if t_seed > 0:
-        # seed-table lookup: plain gathers (glue, as in the JAX package)
-        off = seed_level_offset(t_seed)
-        pw = torch.as_tensor(4 ** np.arange(t_seed - 1, -1, -1, dtype=np.int64),
-                             device=dev)
-        for p in range(P):
-            a_p = int(sched.pos_np[:t_seed, p].min())
-            w = needles[:, a_p : a_p + t_seed].to(torch.int64)  # [B, t_seed]
-            okw = (w < 4).all(dim=-1)
-            wc = w.clamp(max=3)
-            code = off + (wc * pw).sum(dim=-1)
-            rc_code = off + ((3 - wc) * pw.flip(0)).sum(dim=-1)
-            size = index.seed_size[code]
-            st[0, :, p] = index.seed_mlo[code]
-            st[1, :, p] = index.seed_mlo[rc_code]
-            st[2, :, p] = size
-            valid[:, p] = (okw & (size != 0)).to(torch.uint8)
-    else:
-        st[2, :, :P] = torch.tensor(n_total, dtype=torch.int64).to(torch.int32)
-        valid[:, :P] = 1
 
     Fcur = Fp
     for t in range(t_seed, T):
@@ -391,6 +438,7 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
 
     Returns ((st [4, B, J, Fe], valid [B, J, Fe]), ovf_cap, ovf_far)."""
     Fe = tier.f_extend
+    exact = tier.exact if tier.ext_exact is None else tier.ext_exact
     s_st, s_valid = survivors
     # compact survivors into the root slots (node covering [0, J))
     st, valid, ovf_cap = _compact(s_st[:4], s_valid, Fe)
@@ -402,21 +450,24 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
         valid = valid.index_select(1, lv.pmap)
         if lv.T:
             st, valid, ovf_cap, ovf_far = _ext_phase(
-                index, st, valid, ovf_cap, ovf_far, needles, lv, tier.exact
+                index, st, valid, ovf_cap, ovf_far, needles, lv, exact
             )
     return (st, valid), ovf_cap, ovf_far
 
 
-def _count_tail(index, states, cnt, J: int, cap: int, rev_compl: bool):
-    """Per-k-mer saturating counts [B, J] uint16 from the final states."""
+def _count_tail(index, states, cnt, J: int, cap: int, rev_compl: bool,
+                with_exact: bool = False):
+    """Per-k-mer saturating counts [B, J] uint16 from the final states, and
+    with `with_exact` the zero-error interval outputs (kernels.count_tail)."""
     st, valid = states
     return kernels.count_tail(index, st.reshape(st.shape[0], -1),
-                              valid.reshape(-1), cnt, J, cap, rev_compl)
+                              valid.reshape(-1), cnt, J, cap, rev_compl,
+                              with_exact)
 
 
 class BlockMapper:
     """The batch mapper of one configuration (port of `make_block_mapper`'s
-    non-probe, non-collect program).
+    fused program, and of its `probe_only` program with `probe=True`).
 
     Call with starts [B] int32 (uint32 global base positions), cnt [B] int32
     (valid k-mers per block) and limit (exclusive end of the current file's
@@ -424,11 +475,23 @@ class BlockMapper:
     bool, overflow_cap [B] bool) as device tensors.  The index holds both
     strands, so one pass yields the combined forward + reverse-complement
     frequency; rev_compl=False subtracts the reverse-strand occurrences
-    through the strand rank rows."""
+    through the strand rank rows.
+
+    `with_exact` (the dedup key pre-pass) or `with_states` (CSV) add
+    exact_size, exact_size_total and exact_flo ([B, J] int32 holding
+    uint32, see kernels.count_tail); `with_states` also returns the final
+    extension states as states = (flo, size, err, valid), each [B, J, Fe].
+
+    `probe=True` runs the infix scan only, truncated at `probe_cut` steps,
+    and returns dict(skip [B] uint8): a skipped block's k-mers all have
+    frequency 1.  `probe_mass=True` (tests) adds mass_p [B, P] int32,
+    nwin [B] uint8 and overflow [B] uint8."""
 
     def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
                  errors: int, overlap: int, J: int, B: int, tier: Tier,
-                 cap: int, rev_compl: bool):
+                 cap: int, rev_compl: bool, with_exact: bool = False,
+                 with_states: bool = False, probe: bool = False,
+                 probe_cut=None, probe_mass: bool = False):
         if overlap != K - J + 1:
             raise ValueError(f"overlap {overlap} != K - J + 1 = {K - J + 1}")
         if not 0 < cap <= 65535:
@@ -439,6 +502,8 @@ class BlockMapper:
         self.index, self.dtext = index, dtext
         self.K, self.errors, self.J, self.B = K, errors, J, B
         self.tier, self.cap, self.rev_compl = tier, cap, rev_compl
+        self.with_exact, self.with_states = with_exact, with_states
+        self.probe, self.probe_cut, self.probe_mass = probe, probe_cut, probe_mass
         self.Ln = K + J - 1
         plans = plans_for(errors, overlap)
         infix_off = K - overlap
@@ -448,21 +513,42 @@ class BlockMapper:
                                          tier.f_search / 4.0)
         self.sched = _InfixSchedule(plans, infix_off, dev)
         self.levels = [_ExtensionLevel(lv, errors, dev) for lv in _tree_levels(J, K)]
+        self.thr = torch.as_tensor(
+            probe_thresholds(plans, infix_off, probe_cut).astype(np.int32),
+            device=dev,
+        )
 
     def __call__(self, starts, cnt, limit):
         B = starts.shape[0]
         needles = extract_needles(self.dtext, starts, self.Ln, limit)
-        survivors, cap1, far1 = _search_infix(
+        (s_st, s_valid), cap1, far1 = _search_infix(
             self.index, self.sched, needles, B, self.tier, self.n_total,
             self.exact_steps, self.pools,
+            stop_at=self.probe_cut if self.probe else None,
         )
+        if self.probe:
+            ovf = (cap1 | far1).to(torch.uint8)
+            res = kernels.probe_mass(s_st, s_valid, ovf, needles, self.thr,
+                                     self.index.has_n, self.probe_mass)
+            if not self.probe_mass:
+                return dict(skip=res)
+            skip, mass_p, nwin = res
+            return dict(skip=skip, mass_p=mass_p, nwin=nwin, overflow=ovf)
         states, cap2, far2 = _extend_to_kmers(
-            self.index, survivors, needles, self.levels, B, self.tier
+            self.index, (s_st, s_valid), needles, self.levels, B, self.tier
         )
-        hits = _count_tail(self.index, states, cnt, self.J, self.cap,
-                           self.rev_compl)
-        return dict(
-            hits=hits,
+        exact = self.with_exact or self.with_states
+        res = _count_tail(self.index, states, cnt, self.J, self.cap,
+                          self.rev_compl, exact)
+        out = dict(
+            hits=res[0] if exact else res,
             overflow=cap1 | far1 | cap2 | far2,
             overflow_cap=cap1 | cap2,
         )
+        if exact:
+            out.update(exact_size=res[1], exact_size_total=res[2],
+                       exact_flo=res[3])
+        if self.with_states:
+            st, valid = states
+            out["states"] = (st[0], st[2], st[3], valid)
+        return out

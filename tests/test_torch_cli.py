@@ -71,7 +71,23 @@ _FLAG_SETS = {
     "freq_small": ["-K", "20", "-E", "2", "-fs", "-r", "-t"],
     "freq_large_nc": ["-K", "20", "-E", "2", "-fl", "-nc", "-r", "-bg", "-w"],
     "selection": ["-K", "20", "-E", "2", "-t", "-w", "-b", "-S", "{bed}"],
+    "csv": ["-K", "20", "-E", "2", "-d", "-t"],
+    "csv_nc": ["-K", "16", "-E", "1", "-d", "-nc", "-fl", "-r"],
+    "csv_selection": ["-K", "20", "-E", "2", "-d", "-fl", "-t", "-S", "{bed}"],
 }
+
+
+def _map_both(root, jidx, tidx, name, argv):
+    jout, tout = root / f"j_{name}", root / f"t_{name}"
+    jout.mkdir()
+    tout.mkdir()
+    assert jax_main(["map", "-I", jidx, "-O", str(jout), *argv]) == 0
+    assert torch_main(["map", "-I", tidx, "-O", str(tout), *argv, "--device", "cpu"]) == 0
+    j, t = _tree(jout), _tree(tout)
+    assert j and sorted(j) == sorted(t)
+    for fn in j:
+        assert j[fn] == t[fn], fn
+    return t
 
 
 @pytest.mark.parametrize("flags", sorted(_FLAG_SETS))
@@ -80,27 +96,58 @@ def test_map_outputs_are_byte_equal(indexes, flags):
     bed = root / "sel.bed"
     bed.write_text("chr1\t5\t400\nchr2\t380\t600\nchr1\t900\t960\n")
     argv = [a.replace("{bed}", str(bed)) for a in _FLAG_SETS[flags]]
-    jout, tout = root / f"j_{flags}", root / f"t_{flags}"
-    jout.mkdir()
-    tout.mkdir()
-    assert jax_main(["map", "-I", jidx, "-O", str(jout), *argv]) == 0
-    assert torch_main(["map", "-I", tidx, "-O", str(tout), *argv, "--device", "cpu"]) == 0
-    j, t = _tree(jout), _tree(tout)
-    assert j and sorted(j) == sorted(t)
-    for name in j:
-        assert j[name] == t[name], name
+    t = _map_both(root, jidx, tidx, flags, argv)
+    if "-d" in argv:
+        csv = t["genome.genmap.csv"].decode()
+        assert csv.count("\n") > 100 and "|" in csv  # repeats list several locations
 
 
-def test_unported_flags_fail_loudly(indexes, capsys):
-    root, _jidx, tidx = indexes
-    out = root / "t_unported"
-    out.mkdir()
-    for flag in ("-d", "-ep"):
-        rc = torch_main(["map", "-I", tidx, "-O", str(out), "-K", "20", "-t",
-                         flag, "--device", "cpu"])
-        assert rc == 1
-        assert "not yet ported" in capsys.readouterr().err
-    assert not list(out.iterdir())
+@pytest.fixture(scope="module")
+def dir_indexes(tmp_path_factory):
+    """A directory of three FASTA files that share a 300 bp segment (one
+    copy reverse-complemented), indexed by both CLIs with -FD."""
+    root = tmp_path_factory.mktemp("cli_dir")
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, 4, 300)
+    files = {
+        "a.fa": {"a1": np.concatenate([rng.integers(0, 4, 200), shared,
+                                       rng.integers(0, 4, 150)]),
+                 "a2": rng.integers(0, 4, 120)},
+        "b.fa": {"b1": np.concatenate([rng.integers(0, 4, 90), (3 - shared)[::-1],
+                                       rng.integers(0, 4, 60)])},
+        "c.fa": {"c1": np.concatenate([rng.integers(0, 4, 50), shared,
+                                       rng.integers(0, 5, 100)])},
+    }
+    fdir = root / "fasta"
+    fdir.mkdir()
+    for fn, chroms in files.items():
+        with open(fdir / fn, "w") as f:
+            for name, codes in chroms.items():
+                f.write(f">{name}\n{_ACGTN[codes].tobytes().decode()}\n")
+    jidx, tidx = str(root / "jidx"), str(root / "tidx")
+    assert jax_main(["index", "-FD", str(fdir), "-I", jidx, "-S", "3"]) == 0
+    assert torch_main(["index", "-FD", str(fdir), "-I", tidx, "-S", "3"]) == 0
+    return root, jidx, tidx
+
+
+_EP_FLAG_SETS = {
+    "ep": ["-K", "24", "-E", "1", "-ep", "-fl", "-t"],
+    "ep_nc": ["-K", "24", "-E", "1", "-ep", "-nc", "-fl", "-r"],
+    "ep_csv": ["-K", "24", "-E", "1", "-d", "-ep", "-fl", "-t"],
+}
+
+
+@pytest.mark.parametrize("flags", sorted(_EP_FLAG_SETS))
+def test_exclude_pseudo_outputs_are_byte_equal(dir_indexes, flags):
+    root, jidx, tidx = dir_indexes
+    t = _map_both(root, jidx, tidx, flags, _EP_FLAG_SETS[flags])
+    assert sorted(t) == sorted(
+        f"{b}.genmap.{x}" for b in "abc"
+        for x in (["txt"] if "-t" in _EP_FLAG_SETS[flags] else ["freq16"])
+        + (["csv"] if "-d" in _EP_FLAG_SETS[flags] else [])
+    )
+    if flags != "ep_nc":  # the shared segment occurs in all three files
+        assert b"\t3" in t["c.genmap.txt"] or b" 3" in t["c.genmap.txt"]
 
 
 def test_multipart_index_fails_loudly(tmp_path, capsys):

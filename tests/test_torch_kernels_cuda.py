@@ -154,6 +154,72 @@ def test_count_tail(cuda, alpha, rev_compl, cap):
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("rev_compl", [True, False])
+def test_count_tail_exact(cuda, alpha, rev_compl):
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(7 + alpha + 2 * rev_compl)
+    B, J = 40, 7
+    for Fe in (1, 4, 64):
+        N = B * J * Fe
+        st, valid = _states(rng, gi.n_total, N, 4, 1, wide=True)
+        cnt = torch.from_numpy(rng.integers(0, J + 1, B).astype(np.int32))
+        ref = kernels.count_tail(ci, st, valid, cnt, J, 255, rev_compl, True)
+        got = kernels.count_tail(gi, st.to(cuda), valid.to(cuda), cnt.to(cuda),
+                                 J, 255, rev_compl, True)
+        torch.cuda.synchronize()
+        assert len(got) == 4
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        assert ref[1].any() and ref[3].any()
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("with_mass", [True, False])
+def test_probe_mass(cuda, alpha, with_mass):
+    rng = np.random.default_rng(11 + alpha)
+    for B, F, P, Ln in ((200, 4, 3, 148), (64, 40, 7, 37), (33, 300, 2, 90)):
+        st = np.zeros((5, B, F), np.int64)
+        st[2] = rng.integers(1, 4, (B, F))
+        big = rng.random((B, F)) < 0.05  # sums past 2^32 saturate
+        st[2][big] = rng.integers(2**31, 2**32, int(big.sum()))
+        st[4] = rng.integers(0, P, (B, F))
+        valid = rng.random((B, F)) < rng.random((B, 1)) * 0.3
+        ovf = rng.random(B) < 0.1
+        needles = rng.integers(0, 4, (B, Ln))
+        needles[rng.random((B, Ln)) < 0.002] = 4
+        thr = rng.integers(0, 2, P)
+        args = [torch.from_numpy(st.astype(np.uint32).view(np.int32)),
+                torch.from_numpy(valid.astype(np.uint8)),
+                torch.from_numpy(ovf.astype(np.uint8)),
+                torch.from_numpy(needles.astype(np.uint8)),
+                torch.from_numpy(thr.astype(np.int32))]
+        ref = kernels.probe_mass(*args, alpha == 5, with_mass)
+        got = kernels.probe_mass(*(a.to(cuda) for a in args), alpha == 5, with_mass)
+        torch.cuda.synchronize()
+        ref = ref if with_mass else (ref,)
+        got = got if with_mass else (got,)
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        assert ref[0].any() and not ref[0].all()
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_locate(cuda, alpha):
+    data = _data(alpha)
+    part = data.parts[0]
+    gi = rank.DeviceIndex.from_part(data, part, light=False, device=cuda)
+    ci = rank.DeviceIndex.from_part(data, part, light=False, device="cpu")
+    n = part.n_total
+    pos = torch.from_numpy(np.arange(n, dtype=np.uint32).view(np.int32))
+    valid = torch.from_numpy((np.arange(n) % 5 != 0).astype(np.uint8))
+    ref = kernels.locate(ci, pos, valid)
+    got = kernels.locate(gi, pos.to(cuda), valid.to(cuda))
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
 def test_engine_cuda_equals_cpu(cuda, alpha):
     data = _data(alpha)
     tiers = (Tier(4, 4, 1, exact=False), Tier(4, 4, 1), Tier(32, 64, 8),
@@ -168,4 +234,18 @@ def test_engine_cuda_equals_cpu(cuda, alpha):
         counts = kernels.launch_counts()
         c = ce.compute_file(ce.layouts[0], params, e, 255)
         np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e}")
-        assert all(n > 0 for n in counts.values()), counts
+        # this genome is below the probe's gate and runs no CSV: the four
+        # kernels of the plain map path
+        assert all(counts[n] > 0 for n in ("extract_needles", "candidate_step",
+                                           "compact", "count_tail")), counts
+    # CSV locations and exclude-pseudo go through the locate kernel
+    params = SearchParams(length=16, overlap=10, rev_compl=True, exclude_pseudo=True)
+    kernels.reset_launches()
+    g = ge.compute_file(ge.layouts[0], params, 1, 255, csv=True)
+    assert kernels.launch_counts()["locate"] > 0
+    c = ce.compute_file(ce.layouts[0], params, 1, 255, csv=True)
+    np.testing.assert_array_equal(g.c, c.c)
+    assert g.locations and sorted(g.locations) == sorted(c.locations)
+    for key, ((f1, f2), (r1, r2)) in g.locations.items():
+        for a, b in zip((f1, f2, r1, r2), (x for pair in c.locations[key] for x in pair)):
+            np.testing.assert_array_equal(a, b)
