@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of genmap_tpu_torch on one NVIDIA GPU: kernels, main path,
-dedup, CSV locations and exclude-pseudo, cross-checks.
+dimer tiers, dedup, CSV locations and exclude-pseudo, multi-part indexes,
+cross-checks.
 
     python3 chip_smoke.py
 
@@ -11,20 +12,27 @@ or of the JAX package.  Phases (any failure exits non-zero):
   1. build   every CUDA kernel of the port from csrc/ (one nvcc per source,
              in parallel)
   2. dna5    on a ~1 Mbp genome-like Dna5 index (A = 5 candidates), one
-             (100,2) batch of B=1024 blocks runs through the block mapper;
-             every kernel call is also computed by its plain PyTorch version
-             on the card and must agree exactly
+             (100,2) batch of B=1024 blocks runs through the block mapper,
+             at the mono tier 0 and at two forced dimer tiers (fast and
+             exact: the index's flagged fraction is above the automatic
+             gate, so only a forced tier reaches the A = 5 dimer variants
+             and the N-flagged `far` path); every kernel call is also
+             computed by its plain PyTorch version on the card and must
+             agree exactly
   3. main    `genmap-tpu-torch index` of a 12.07 Mbp genome-like genome laid
              out as S. cerevisiae's 16 nuclear chromosomes (Dna4), then
              `genmap-tpu-torch map -K 100 -E 2` of the whole genome on the
-             card (the unique-infix probe on, as by default), four times:
+             card (the unique-infix probe on and dimer twins before the wide
+             exact tiers, as by default), four times:
              - a checked run: every kernel call of the seed-table build and
-               of the first batch of each program (the probe and each tier)
-               is held against its plain version (exactly), and that batch
-               is profiled
+               of the first batch of each program (the probe and each tier,
+               twins included) is held against its plain version (exactly),
+               and that batch is profiled
              - three timed runs: launch counters set to 0 just before and
                read just after each; every kernel of the path must have
                launched; the k-mers/s figure is their median
+             then `map -K 24 -E 1` of the whole genome, whose tier 0 runs on
+             the dimer rows: checked, then counted (dimer_step must launch)
   4. check   `map -d` on the CPU (plain PyTorch path) and on the card for a
              BED selection of >= 20,000 k-mers spread over the genome, half
              of them in repeat-rich windows (below the probe's gate, so the
@@ -48,9 +56,15 @@ or of the JAX package.  Phases (any failure exits non-zero):
              `map -ep -d -fl -r` over chrI of both files on the card, and over a
              >= 10,000-k-mer sub-selection on the card and on the CPU, whose
              output files must be byte-equal
-  8. kernels the largest checked call of each kernel is timed on the card
-             (kernel, plain version, library call where one exists) beside
-             its bound
+  8. multipart  chrI-chrVII indexed whole and with `-xm` into three parts:
+             `map -K 100 -E 2` and `-K 24 -E 1` of both on the card (first
+             batch of each program checked, the probe's per-part mass sums
+             included), frequencies equal; `map -d` of a >= 10,000-k-mer
+             selection on the split index on the card and on the CPU, and on
+             the whole index on the card: all output files byte-equal
+  9. kernels the largest checked call of each kernel (and of each
+             dimer_step variant) is timed on the card (kernel, plain
+             version, library call where one exists) beside its bound
 
 Output: a line per kernel, `{"kernels": [...]}`, the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
@@ -86,10 +100,15 @@ DNA5_BP = 1_000_000  # Dna5 index of phase 2
 B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
 TIMED_RUNS = 3
 NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
-         "probe_mass", "locate")
-MAIN_NAMES = NAMES[:5]  # the kernels of the whole-genome map (no CSV)
+         "probe_mass", "locate", "dimer_step")
+# the kernels of the whole-genome map (no CSV)
+MAIN_NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
+              "probe_mass", "dimer_step")
 EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
 DEDUP_CHROMS = 7  # chrI-chrVII
+MP_CHROMS = 7  # chrI-chrVII, the multi-part phase's genome
+MP_XM = 4_000_000  # its -xm cap in symbols (both strands): three parts
+MP_SEL = 10_000  # k-mers of its -d selection
 _ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
@@ -261,14 +280,22 @@ class _Checker:
                                  f"{self.phase} (max abs err {err}, "
                                  f"{variant(name, args)})")
         size = sum(x.numel() for x in args.values() if hasattr(x, "numel"))
-        key = timing_key(name, args)
-        if self.keep and (key not in self.largest or size > self.largest[key][0]):
-            self.largest[key] = (size, args, self.phase)
+        for key in timing_keys(name, args):
+            if self.keep and (key not in self.largest or size > self.largest[key][0]):
+                self.largest[key] = (size, args, self.phase)
 
 
-def timing_key(name, args) -> str:
-    """The kernel, or for count_tail's zero-error outputs its own entry."""
-    return "count_tail+exact" if name == "count_tail" and args.get("with_exact") else name
+def timing_keys(name, args) -> list:
+    """The kernel's entry (its largest call is its row in the kernels line),
+    and entries logged beside it: count_tail's zero-error outputs, and each
+    dimer_step variant."""
+    if name == "count_tail" and args.get("with_exact"):
+        return ["count_tail+exact"]
+    if name == "dimer_step":  # A, rank mode, mono steps, passthrough slots
+        return [name, f"{name}+A={args['index'].nchars},"
+                      f"{'exact' if args['exact'] else 'fast'},"
+                      f"mono={args['with_mono']},pass={args['with_pass']}"]
+    return [name]
 
 
 def variant(name, args) -> str:
@@ -281,7 +308,12 @@ def variant(name, args) -> str:
         return f"M={args['arrays'].shape[2]} F={args['F']}"
     if name == "probe_mass":
         return (f"F={args['st'].shape[2]} P={args['thr'].numel()} "
-                f"N-window={args['has_n']} mass={bool(args.get('with_mass'))}")
+                f"N-window={args['has_n']} mass={bool(args.get('with_mass'))} "
+                f"acc={args.get('acc') is not None} last={args.get('last', True)}")
+    if name == "dimer_step":
+        return (f"A={args['index'].nchars} R={args['st'].shape[0]} "
+                f"{'exact' if args['exact'] else 'fast'} mono={args['with_mono']} "
+                f"pass={args['with_pass']}")
     if name == "locate":
         return f"A={args['index'].nchars} sampling={args['index'].sampling}"
     N = args["valid"].numel()
@@ -351,12 +383,17 @@ def kernel_work(name, args):
         P = args["thr"].numel()
         nvalid = int(valid.sum())
         Ln = args["needles"].shape[1]
+        acc_bytes = 8 * Bp * (P + 1)  # running per-part sum, in and out
         nbytes = (Bp * F + 8 * nvalid + Bp + (Bp * Ln if args["has_n"] else 0)
-                  + 4 * P + Bp + ((4 * P + 1) * Bp if args.get("with_mass") else 0))
+                  + 4 * P + (0 if args.get("last", True) else acc_bytes - Bp) + Bp
+                  + (acc_bytes if args.get("acc") is not None else 0)
+                  + ((4 * P + 1) * Bp if args.get("with_mass") else 0))
         nops = 4 * Bp * F + 2 * P * nvalid
         return nbytes, nops, f"B={Bp} F={F} P={P} valid={nvalid}", 0
     if name == "locate":
         return locate_work(args)
+    if name == "dimer_step":
+        return dimer_work(args)
     cnt, J = args["cnt"], args["J"]
     N = args["valid"].numel()
     v = args["valid"].bool()
@@ -369,6 +406,46 @@ def kernel_work(name, args):
     nops = 6 * N + 30 * n_strand + 4 * n_exact
     return nbytes, nops, (f"B={cnt.numel()} J={J} Fe={N // (cnt.numel() * J)} valid={nvalid}"
                           + (f" exact={n_exact}" if exact else "")), 0
+
+
+def dimer_work(args):
+    """Bytes and operations of one dimer_step call: validity and plan ids
+    of every state, the state rows of the consuming valid states, per
+    distinct dimer sub-row read the words a bound needs (2 field words, 4
+    delta words, 16 threshold counts, 4 mono counts), the outputs; per
+    bound ~420 ops (16 nibble-equality masks and popcounts over 2 words,
+    16 sums) and ~20 per candidate."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.ops import rank
+
+    ix, st, valid = args["index"], args["st"], args["valid"]
+    R, N = st.shape
+    G = args["right"].shape[0]
+    _blk, g = kernels._state_groups(st, args["per_block"], args["inner"], G)
+    cons = args["consume"].to(torch.int64)[g]
+    passing = (cons == 0) if args["with_pass"] else torch.zeros_like(cons, dtype=torch.bool)
+    work = valid.bool() & ~passing
+    nwork = int(work.sum())
+    r = args["right"].bool()[g]
+    mlo = torch.where(r, rank.u32(st[1]), rank.u32(st[0]))[work]
+    hi = (mlo + rank.u32(st[2])[work]) & rank.MASK32
+    if args["exact"]:
+        subs = torch.cat([mlo >> 7, hi >> 7])
+    else:  # the paired row at mlo; its second half when hi lies past it
+        q = mlo >> 7
+        subs = torch.cat([q, (q + 1)[(hi >> 7) > q]])
+    n_reads = int(subs.numel())
+    n_subs = int(torch.unique(subs).numel())
+    nbytes = (N + (4 * N if R == 5 else 0) + 4 * 4 * nwork
+              + 4 * (R - (R == 5)) * int(passing.sum())  # passthrough copies
+              + n_subs * 26 * 4 + R * N * 16 * 4 + N * 16 + N)
+    nops = nwork * (2 * 420 + 16 * 20)
+    mode = "exact" if args["exact"] else "fast"
+    return (nbytes, nops, f"N={N} states ({nwork} valid, consuming) R={R} "
+            f"A={ix.nchars} {mode} mono={args['with_mono']} pass={args['with_pass']}, "
+            f"{n_reads} dimer sub-row reads of {n_subs} distinct sub-rows", n_reads)
 
 
 def locate_work(args):
@@ -447,7 +524,8 @@ def time_kernels(checker, launches):
     from genmap_tpu_torch import kernels
 
     rows = []
-    for key in NAMES + ("count_tail+exact",):
+    extra = sorted(k for k in checker.largest if "+" in k)
+    for key in NAMES + tuple(extra):
         name = key.split("+")[0]
         if key not in checker.largest:
             raise AssertionError(f"{key}: no call was checked")
@@ -471,8 +549,10 @@ def time_kernels(checker, launches):
         elif n_reads:
             rate = (f" rows_per_s={n_reads / (ms * 1e-3):.3e} flushed, "
                     f"{n_reads / (warm_ms * 1e-3):.3e} warm")
-        log(f"kernel {key}: {checker.calls[name]} checked calls equal to plain "
-            f"(variants: {', '.join(sorted(checker.variants[name]))}); largest, "
+        calls = ("the largest of its variant" if key != name else
+                 f"{checker.calls[name]} checked calls equal to plain (variants: "
+                 f"{', '.join(sorted(checker.variants[name]))}); largest")
+        log(f"kernel {key}: {calls}, "
             f"in {phase}: {shape}: {ms:.4f} ms with L2 flushed, {warm_ms:.4f} ms "
             f"warm (plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
             f"{nbytes} B, {nops} ops"
@@ -547,7 +627,7 @@ def dna5_phase(dev, checker):
     from genmap_tpu_torch.index.build import build_index
     from genmap_tpu_torch.io.fasta import FastaFile
     from genmap_tpu_torch.ops import rank
-    from genmap_tpu_torch.search.engine import DEFAULT_TIERS, BlockMapper
+    from genmap_tpu_torch.search.engine import DEFAULT_TIERS, BlockMapper, Tier
 
     t = time.perf_counter()
     rng = np.random.default_rng(SEED + 1)
@@ -569,19 +649,28 @@ def dna5_phase(dev, checker):
     starts = np.sort(rng.choice(np.arange(0, nk - J, J), B_DNA5, replace=False))
     cnt = torch.full((B_DNA5,), J, dtype=torch.int32, device=dev)
     st_t = torch.from_numpy(starts.astype(np.uint32).view(np.int32)).to(dev)
-    mapper = BlockMapper(index, text, K=K, errors=E, overlap=o, J=J, B=B_DNA5,
-                         tier=DEFAULT_TIERS[0], cap=65535, rev_compl=True)
-    before = dict(checker.calls)
-    checker.on, checker.phase = True, f"the Dna5 (100,2) B={B_DNA5} batch"
-    try:
-        mapper(st_t, cnt, data.text_len)
-        torch.cuda.synchronize()
-    finally:
-        checker.on = False
-    n = {k: checker.calls[k] - before[k] for k in NAMES[:4]}
-    log(f"dna5: one (100,2) B={B_DNA5} batch: kernel calls equal to plain {n}")
-    if min(n.values()) == 0:
-        raise AssertionError(f"the Dna5 batch did not call every kernel: {n}")
+    log(f"dna5: dimer flagged sub-block fraction {data.parts[0].dimer_flag_frac:.5f} "
+        f"(the automatic gate needs < 0.001)")
+    # tier 0 as the engine runs it, and two forced dimer tiers
+    for tier, names in ((DEFAULT_TIERS[0], NAMES[:4]),
+                        (Tier(4, 4, 1, exact=False, dimer=True), ("dimer_step",)),
+                        (Tier(32, 64, 8, dimer=True), ("dimer_step",))):
+        mapper = BlockMapper(index, text, K=K, errors=E, overlap=o, J=J, B=B_DNA5,
+                             tier=tier, cap=65535, rev_compl=True)
+        before = dict(checker.calls)
+        # the dimer calls are kept for timing (their A = 5 variants)
+        checker.on, checker.keep = True, tier.dimer
+        checker.phase = f"the Dna5 (100,2) B={B_DNA5} batch at {tier}"
+        try:
+            out = mapper(st_t, cnt, data.text_len)
+            torch.cuda.synchronize()
+        finally:
+            checker.on = checker.keep = False
+        n = {k: checker.calls[k] - before[k] for k in NAMES}
+        log(f"dna5: one (100,2) B={B_DNA5} batch at {tier}: {int(out['overflow'].sum())} "
+            f"blocks flagged to the next tier; kernel calls equal to plain {n}")
+        if min(n[k] for k in names) == 0:
+            raise AssertionError(f"the Dna5 batch did not call every kernel: {n}")
 
 
 # ---------------------------------------------------------------------------
@@ -627,24 +716,36 @@ class first_batches_checked:
         self.orig = orig = MappabilityEngine._run_batch
         checker, seen = self.checker, self.seen
 
-        def run_batch(eng, run, layout, bstarts, bcnts, B):
-            if id(run) in seen:
+        def run_batch(eng, runs, layout, bstarts, bcnts, B):
+            key = tuple(id(r) for r in runs)
+            if key in seen:
                 checker.on = False
-                return orig(eng, run, layout, bstarts, bcnts, B)
-            seen.add(id(run))
+                return orig(eng, runs, layout, bstarts, bcnts, B)
+            seen.add(key)
+            run = runs[0]
             t = run.tier
             label = (f"{self.where}: first batch of "
                      f"{'the probe' if run.probe else 'tier'}(f_search={t.f_search}, "
-                     f"f_extend={t.f_extend}, exact={t.exact}, ext_exact={t.ext_exact}, "
-                     f"K={run.K}, e={run.errors}"
+                     f"f_extend={t.f_extend}, exact={t.exact}, dimer={t.dimer}, "
+                     f"ext_exact={t.ext_exact}, K={run.K}, e={run.errors}"
                      f"{', with_exact' if run.with_exact else ''}) B={B} "
-                     f"({len(bstarts)} blocks)")
+                     f"({len(bstarts)} blocks, {len(runs)} index part(s))")
             checker.on = False
             if self.profile:
-                profile_batch(lambda: orig(eng, run, layout, bstarts, bcnts, B), label)
+                import torch
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                orig(eng, runs, layout, bstarts, bcnts, B)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                log(f"memory: {label}: peak allocated {peak} B ({peak - base} B above "
+                    f"what was allocated before the batch)")
+                profile_batch(lambda: orig(eng, runs, layout, bstarts, bcnts, B), label)
             checker.on, checker.keep, checker.phase = True, True, label
             try:
-                return orig(eng, run, layout, bstarts, bcnts, B)
+                return orig(eng, runs, layout, bstarts, bcnts, B)
             finally:
                 checker.on = checker.keep = False
 
@@ -674,11 +775,21 @@ def checked_map(idx, out, checker) -> None:
     if rc != 0:
         raise AssertionError(f"checked map exited {rc}")
     n = {k: checker.calls[k] - before[k] for k in NAMES}
+    st = report["stats"]
     log(f"main: checked map ({len(fb.seen)} batch programs) in "
         f"{time.perf_counter() - t:.2f} s: kernel calls equal to plain {n}; "
-        f"probe skipped {report['stats']['probe_skipped']} blocks")
-    if n["probe_mass"] == 0:
-        raise AssertionError("the main path ran no probe batch")
+        f"probe skipped {st['probe_skipped']} blocks")
+    log(f"main: dimer tier 0 {st['dimer_tier']}; ladder {ladder_str(st['tiers'])}; "
+        f"blocks per tier {st['tier_blocks']}")
+    if n["probe_mass"] == 0 or n["dimer_step"] == 0:
+        raise AssertionError("the main path ran no probe batch or no dimer twin")
+
+
+def ladder_str(tiers) -> str:
+    """The expanded tier ladder, one f_search/f_extend[d][x] per tier
+    (d: dimer rows, x: exact infix)."""
+    return " ".join(f"{i}:{t.f_search}/{t.f_extend}{'d' if t.dimer else ''}"
+                    f"{'x' if t.exact else ''}" for i, t in enumerate(tiers))
 
 
 def counted_map(argv, report=None):
@@ -710,6 +821,7 @@ def main_path(dev, work, checker):
     import torch
 
     from genmap_tpu_torch.cli.main import main as cli_main
+    from genmap_tpu_torch.index.fmindex import FMIndexData
 
     t = time.perf_counter()
     chroms = yeast_like_genome()
@@ -772,10 +884,53 @@ def main_path(dev, work, checker):
     log(f"main: kernel launches per run {launches}")
     if not (gpu_freq[: len(chroms[0][1]) - K + 1] >= 1).all():
         raise AssertionError("a k-mer without N has frequency 0 (its own occurrence)")
+    data = FMIndexData.load(idx)
+    log(f"main: dimer flagged sub-block fraction {data.parts[0].dimer_flag_frac:.6f}; "
+        f"dimer tier 0 {st['dimer_tier']}; ladder {ladder_str(st['tiers'])}")
     summary = dict(kmers_per_s_median=float(np.median(runs)), kmers_per_s_runs=runs,
                    n_kmers=report["n_kmers"], resident_bytes=report["resident_bytes"],
-                   probe_skipped=st["probe_skipped"], tier_blocks=st["tier_blocks"])
+                   probe_skipped=st["probe_skipped"], tier_blocks=st["tier_blocks"],
+                   map_24_1=short_map(idx, work, checker))
     return launches, summary, idx, chroms, gpu_freq
+
+
+def short_map(idx, work, checker):
+    """`map -K 24 -E 1` of the whole genome: its pool schedule is wide enough
+    (mean >= 12 slots) that tier 0 runs on the dimer rows.  A checked run,
+    then a counted one."""
+    import torch
+
+    from genmap_tpu_torch.cli.map_cmd import map_main
+
+    argv = ["-K", "24", "-E", "1", "-fl", "-r", "--device", "cuda"]
+    out = os.path.join(work, "short_checked")
+    os.makedirs(out)
+    report = {}
+    before = dict(checker.calls)
+    with first_batches_checked(checker, "main (24,1)") as fb:
+        if map_main(["-I", idx, "-O", out + "/", *argv], report=report) != 0:
+            raise AssertionError("checked (24,1) map failed")
+    n = {k: checker.calls[k] - before[k] for k in NAMES}
+    checked = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+    out = os.path.join(work, "short_counted")
+    os.makedirs(out)
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    counts = counted_map(["-I", idx, "-O", out + "/", *argv], report=report)
+    st = report["stats"]
+    kps = report["n_kmers"] / report["compute_s"]
+    freq = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+    log(f"main: map -K 24 -E 1: checked run ({len(fb.seen)} batch programs): kernel "
+        f"calls equal to plain {n}; counted run {report['compute_s']:.2f} s compute, "
+        f"{kps:.1f} k-mers/s, dimer tier 0 {st['dimer_tier']}, ladder "
+        f"{ladder_str(st['tiers'])}, blocks per tier {st['tier_blocks']}, probe "
+        f"skipped {st['probe_skipped']}, launches {counts}, peak allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    if not st["dimer_tier"] or counts["dimer_step"] == 0 or n["dimer_step"] == 0:
+        raise AssertionError("the (24,1) map did not run tier 0 on the dimer rows")
+    if not np.array_equal(freq, checked):
+        raise AssertionError("(24,1) counted run's frequencies differ from the checked run's")
+    return dict(kmers_per_s=kps, tier_blocks=st["tier_blocks"], launches=counts)
 
 
 def check_phase(work, idx, chroms, gpu_freq, checker):
@@ -851,9 +1006,9 @@ def csv_phase(work, idx, chroms, gpu_freq):
     orig = MappabilityEngine.locate_many
     located = [0, 0.0]
 
-    def timed_locate(eng, positions):
+    def timed_locate(eng, pi, positions):
         t = time.perf_counter()
-        res = orig(eng, positions)  # the host copy of the result waits for the card
+        res = orig(eng, pi, positions)  # the host copy of the result waits for the card
         located[0] += len(positions)
         located[1] += time.perf_counter() - t
         return res
@@ -890,6 +1045,8 @@ def dedup_phase(dev, checker):
     from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
     from genmap_tpu_torch.index.build import build_index
     from genmap_tpu_torch.io.fasta import FastaFile
+    from genmap_tpu_torch.search.engine import infix_pool_schedule
+    from genmap_tpu_torch.search.schemes import plans_for
 
     chroms = yeast_like_genome()[:DEDUP_CHROMS]
     ff = FastaFile(name="dup.fa")
@@ -935,9 +1092,17 @@ def dedup_phase(dev, checker):
             finally:
                 MappabilityEngine._compute_with_dedup = orig
             s_ = eng.stats
+            pool_mean = float(infix_pool_schedule(
+                plans_for(e, k - x), x, data.parts[0].n_total).mean())
             log(f"dedup: ({k},{e}) dedup={dedup}: {time.perf_counter() - t:.2f} s, "
                 f"dedup pass taken {taken}, probe skipped {s_['probe_skipped']}, "
-                f"tier blocks {s_['tier_blocks']}, batches {s_['batches']}")
+                f"tier blocks {s_['tier_blocks']}, batches {s_['batches']}; dimer "
+                f"tier 0 {s_['dimer_tier']} (tier-0 pool mean {pool_mean:.2f}, gate 12; "
+                f"flagged fraction {data.parts[0].dimer_flag_frac:.6f}), ladder "
+                f"{ladder_str(s_['tiers'])}")
+            if s_["dimer_tier"] != (pool_mean >= 12.0 and eng._dimer_ok):
+                raise AssertionError(f"({k},{e}): dimer tier 0 {s_['dimer_tier']} "
+                                     "against the gate")
             if taken != ([True] if dedup else []):
                 raise AssertionError(f"({k},{e}) dedup={dedup}: dedup pass {taken}")
         bad = int((freqs[True] != freqs[False]).sum())
@@ -1013,6 +1178,99 @@ def ep_phase(work):
     return dict(chrI_counts=hist[:3].tolist(), sub_kmers=10_000)
 
 
+def multipart_phase(work, checker):
+    """Phase 8: chrI-chrVII indexed whole and split into three parts."""
+    from genmap_tpu_torch.cli.main import main as cli_main
+    from genmap_tpu_torch.cli.map_cmd import map_main
+    from genmap_tpu_torch.index.fmindex import FMIndexData
+
+    chroms = yeast_like_genome()[:MP_CHROMS]
+    fa = os.path.join(work, "mp.fa")
+    write_fasta(fa, chroms)
+    idx = {}
+    for name, extra in (("whole", []), ("split", ["-xm", str(MP_XM)])):
+        idx[name] = os.path.join(work, f"mp_{name}")
+        t = time.perf_counter()
+        if cli_main(["index", "-F", fa, "-I", idx[name], *extra]) != 0:
+            raise AssertionError(f"genmap-tpu-torch index ({name}) failed")
+        parts = FMIndexData.load(idx[name]).parts
+        log(f"multipart: {name} index of {sum(len(c) for _, c in chroms)} bp built in "
+            f"{time.perf_counter() - t:.2f} s: {len(parts)} part(s) of "
+            f"{[p.n_total for p in parts]} symbols, dimer flagged fractions "
+            f"{[round(p.dimer_flag_frac, 6) for p in parts]}")
+    if len(FMIndexData.load(idx["split"]).parts) < 3:
+        raise AssertionError("the -xm index has fewer than 3 parts")
+
+    def freq_of(out):
+        return np.fromfile(os.path.join(out, "mp.genmap.freq16"), dtype="<u2")
+
+    out = {}
+    for k, e in ((K, E), (24, 1)):
+        freqs = {}
+        for name in ("whole", "split"):
+            o = os.path.join(work, f"mp_{name}_{k}_{e}")
+            os.makedirs(o)
+            report = {}
+            before = dict(checker.calls)
+            t = time.perf_counter()
+            with first_batches_checked(checker, f"multipart {name} ({k},{e})"):
+                counts = counted_map(["-I", idx[name], "-O", o + "/", "-K", str(k), "-E",
+                                      str(e), "-fl", "-r", "--device", "cuda"], report)
+            n = {x: checker.calls[x] - before[x] for x in NAMES}
+            st = report["stats"]
+            freqs[name] = freq_of(o)
+            log(f"multipart: ({k},{e}) {name}: {time.perf_counter() - t:.2f} s "
+                f"({report['compute_s']:.2f} s compute, first batches checked); "
+                f"resident bytes per part {report['part_bytes']} ({report['resident_bytes']} "
+                f"B in all, with the text); dimer tier 0 {st['dimer_tier']}, "
+                f"ladder {ladder_str(st['tiers'])}, blocks per tier {st['tier_blocks']}, "
+                f"probe skipped {st['probe_skipped']}; launches {counts}; checked calls {n}")
+        bad = int((freqs["whole"] != freqs["split"]).sum())
+        log(f"multipart: ({k},{e}): {bad} frequency mismatches whole vs split")
+        if bad or freqs["whole"].shape[0] != sum(len(c) for _, c in chroms):
+            raise AssertionError(f"multipart ({k},{e}): whole and split differ")
+        out[f"{k},{e}"] = dict(mismatches=bad)
+    acc_calls = [v for v in checker.variants["probe_mass"] if "acc=True" in v]
+    if not acc_calls:
+        raise AssertionError("no probe_mass accumulate call was checked")
+
+    # -d of a selection: card vs CPU on the split index, split vs whole
+    nk = len(chroms[0][1]) - K + 1
+    bed = os.path.join(work, "mp_sel.bed")
+    per = MP_SEL // (2 * len(chroms)) + 1
+    with open(bed, "w") as f:
+        for name, c in chroms:
+            for b in np.linspace(0, len(c) - K - per, 2).astype(int):
+                f.write(f"{name}\t{b}\t{b + per}\n")
+    trees = {}
+    for name, dev in (("split", "cuda"), ("split", "cpu"), ("whole", "cuda")):
+        o = os.path.join(work, f"mp_sel_{name}_{dev}")
+        os.makedirs(o)
+        t = time.perf_counter()
+        checker.on, checker.phase = dev == "cuda", f"multipart -d selection ({name})"
+        try:
+            rc = map_main(["-I", idx[name], "-O", o + "/", "-K", str(K), "-E", str(E),
+                           "-fl", "-r", "-d", "-S", bed, "--device", dev])
+        finally:
+            checker.on = False
+        if rc != 0:
+            raise AssertionError(f"-d map of the selection ({name}, {dev}) failed")
+        trees[(name, dev)] = read_tree(o)
+        log(f"multipart: -d selection ({2 * len(chroms) * per} k-mers) on the {name} "
+            f"index on {dev} in {time.perf_counter() - t:.1f} s")
+    ref = trees[("split", "cuda")]
+    for key, tree in trees.items():
+        same = sorted(fn for fn in ref if ref[fn] == tree.get(fn))
+        log(f"multipart: files of {key} byte-equal to the split index's on the card: {same}")
+        if sorted(tree) != sorted(ref) or len(same) != len(ref):
+            raise AssertionError(f"-d files of {key} differ")
+    csv = ref["mp.genmap.csv"].decode()
+    if csv.count("\n") < 2 * len(chroms) * per or nk <= 0:
+        raise AssertionError("-d selection: too few CSV rows")
+    out["selection_kmers"] = 2 * len(chroms) * per
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1061,6 +1319,7 @@ def main() -> int:
                                                gpu_freq)
             summary["dedup"] = phase("dedup", dedup_phase, dev, checker)
             summary["ep"] = phase("ep", ep_phase, work)
+            summary["multipart"] = phase("multipart", multipart_phase, work, checker)
             # launches: the whole-genome map's, and locate's from the -d map of chrI
             launches = dict(launches, locate=csv_counts["locate"])
             rows = phase("kernels", time_kernels, checker, launches)

@@ -4,7 +4,8 @@ Port of `genmap_tpu/cli/map_cmd.py` (itself mirroring GenMap
 src/mappability.hpp:409-642): the same flag surface, overlap default and
 clamp, output-path semantics, BED selection and per-file compute + output
 loop, CSV locations (-d) and exclude-pseudo (-ep), plus `--device`.
-Multi-part indexes are not ported yet and exit with an error.
+Single- and multi-part indexes map on one device; the dimer rows are used
+as the JAX CLI uses them (the engine's automatic policy, no flag).
 """
 
 from __future__ import annotations
@@ -109,10 +110,6 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
     cap = 255 if small else 65535
 
     data = FMIndexData.load(args.index, mmap=args.memory_mapping)
-    if len(data.parts) != 1:
-        print(f"ERROR: this index has {len(data.parts)} parts; multi-part "
-              "indexes are not yet ported to genmap-tpu-torch.", file=sys.stderr)
-        return 1
     if args.verbose:
         print(f"Index was loaded (dna{data.alphabet_size} alphabet, "
               f"sampling rate of {data.sampling}).")
@@ -245,5 +242,6 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
         report.update(
             stats=dict(st), n_kmers=n_kmers, compute_s=compute_s,
             resident_bytes=engine.resident_bytes(), device=str(engine.device),
+            part_bytes=[ix.resident_bytes() for ix in engine.indices],
         )
     return 0

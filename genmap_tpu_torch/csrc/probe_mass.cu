@@ -19,6 +19,14 @@
 // scan the needle window for code 4 (N) and a ballot combines them.  Lane
 // 0 then compares each plan's mass against thr[p], ORs in the block's
 // overflow flag and N flag, and writes skip[B].
+//
+// Multi-part indexes: the engine launches once per part.  acc_in (when
+// given) is the running [B, P + 1] int64 sum of the earlier parts: the
+// per-plan masses (each saturated at 2^32 - 1) and, in column P, their
+// overflow and N-window flags ORed.  A launch with acc_out adds this part
+// and writes the new sum there (the decision waits for the last part); a
+// launch with skip decides on the sum.  With one part neither accumulator
+// is given and the launch is the plain one.
 
 #include "genmap.cuh"
 
@@ -30,6 +38,8 @@ __global__ void probe_mass_kernel(const int32_t* __restrict__ st,
                                   const uint8_t* __restrict__ ovf,
                                   const uint8_t* __restrict__ needles, int Ln,
                                   int has_n, const int32_t* __restrict__ thr,
+                                  const int64_t* __restrict__ acc_in,
+                                  int64_t* __restrict__ acc_out,
                                   uint8_t* __restrict__ skip,
                                   int32_t* __restrict__ mass_out,
                                   uint8_t* __restrict__ nwin_out) {
@@ -60,12 +70,16 @@ __global__ void probe_mass_kernel(const int32_t* __restrict__ st,
     unsigned long long m = acc[p];
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) m += __shfl_xor_sync(0xFFFFFFFFu, m, d);
+    if (acc_in) m += (unsigned long long)acc_in[b * (P + 1) + p];
     const uint32_t sat = m > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)m;
     ok = ok && sat <= (uint32_t)thr[p];
     if (lane == 0 && mass_out) mass_out[b * P + p] = (int32_t)sat;
+    if (lane == 0 && acc_out) acc_out[b * (P + 1) + p] = (int64_t)sat;
   }
   if (lane == 0) {
-    skip[b] = (ok && !ovf[b] && !nwin) ? 1 : 0;
+    const bool bad = ovf[b] || nwin || (acc_in && acc_in[b * (P + 1) + P] != 0);
+    if (skip) skip[b] = (ok && !bad) ? 1 : 0;
+    if (acc_out) acc_out[b * (P + 1) + P] = bad ? 1 : 0;
     if (nwin_out) nwin_out[b] = nwin ? 1 : 0;
   }
 }
@@ -73,7 +87,8 @@ __global__ void probe_mass_kernel(const int32_t* __restrict__ st,
 extern "C" int genmap_probe_mass(const void* st, const void* valid,
                                  long long B, int F, int P, const void* ovf,
                                  const void* needles, int Ln, int has_n,
-                                 const void* thr, void* skip, void* mass_out,
+                                 const void* thr, const void* acc_in,
+                                 void* acc_out, void* skip, void* mass_out,
                                  void* nwin_out, void* stream) {
   if (B == 0) return 0;
   if (P < 1 || P > GM_PROBE_MAX_P) return (int)cudaErrorInvalidValue;
@@ -82,7 +97,8 @@ extern "C" int genmap_probe_mass(const void* st, const void* valid,
   probe_mass_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)st, (const uint8_t*)valid, (int64_t)B, F, P,
       (const uint8_t*)ovf, (const uint8_t*)needles, Ln, has_n,
-      (const int32_t*)thr, (uint8_t*)skip, (int32_t*)mass_out,
+      (const int32_t*)thr, (const int64_t*)acc_in, (int64_t*)acc_out,
+      (uint8_t*)skip, (int32_t*)mass_out,
       (uint8_t*)nwin_out);
   return (int)cudaGetLastError();
 }

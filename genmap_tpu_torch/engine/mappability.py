@@ -1,13 +1,15 @@
 """Host orchestrator: per-file (k,e)-frequency computation on the device.
 
-Port of `genmap_tpu/engine/mappability.py` for a single-part index on one
-device: block decomposition of a file (or of a BED selection), the
-unique-infix probe, same-k-mer dedup, the batch loop over the block mapper
-(search/engine.py), capacity-tier escalation routed by overflow kind, a
-rescue pass at the static largest tier, scatter into the frequency vector,
-the CSV location table, the exclude-pseudo reduction and resetLimits.
-Occupancy calibration, the split pipeline and the dimer table are not part
-of this port yet; none of them changes a result.
+Port of `genmap_tpu/engine/mappability.py` on one device, for single- and
+multi-part indexes: block decomposition of a file (or of a BED selection),
+the unique-infix probe, same-k-mer dedup, the batch loop over the block
+mapper (search/engine.py, one mapper per index part, counts summed over the
+parts), the dimer-table policy (tier 0 and twins of the wide tiers on the
+dimer rows), capacity-tier escalation routed by overflow kind, a rescue
+pass at the static largest tier, scatter into the frequency vector, the CSV
+location table, the exclude-pseudo reduction and resetLimits.  Occupancy
+calibration and the split pipeline are not part of this port yet; neither
+changes a result.
 
 Capability map to the reference (GenMap src/):
   - per-file segmentation loop            mappability.hpp:276-365
@@ -124,12 +126,22 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 
 
 class MappabilityEngine:
-    """Single-part, single-device mapping engine.
+    """Single-device mapping engine.
 
     Runs on `device` ("cuda" by default; "cpu" takes every kernel's plain
-    PyTorch version).  Raises on "cuda" without a card and on multi-part
-    indexes (not ported yet).  `light=True` leaves the SA samples off the
-    device: only `locate` (CSV, exclude-pseudo) reads them."""
+    PyTorch version); raises on "cuda" without a card.  Every part of a
+    multi-part index stays resident on the device and is searched in turn;
+    matches never span parts, so per-part counts add up.  `light=True`
+    leaves the SA samples off the device: only `locate` (CSV,
+    exclude-pseudo) reads them.
+
+    `dimer_tier`: None (auto) runs tier 0 on the dimer rows for
+    configurations whose static pool schedule is wide (mean >= 12 slots) and
+    inserts a dimer twin before every wide exact tier, when every part has
+    dimer rows with a flagged sub-block fraction below 1e-3 and the ladder is
+    DEFAULT_TIERS; True forces both wherever every part has dimer rows;
+    False never uses them.  These gates are the JAX package's own; the
+    dimer rows change speed only, never a result."""
 
     def __init__(
         self,
@@ -140,12 +152,8 @@ class MappabilityEngine:
         dedup: bool = True,
         light: bool = False,
         device="cuda",
+        dimer_tier: bool | None = None,
     ):
-        if len(data.parts) != 1:
-            raise NotImplementedError(
-                f"multi-part indexes ({len(data.parts)} parts) are not yet "
-                "ported to genmap_tpu_torch"
-            )
         self.device = resolve_device(device)
         self.data = data
         self.batch_blocks = batch_blocks
@@ -154,9 +162,17 @@ class MappabilityEngine:
         self.light = light
         self.tiers = tuple(tiers)
         self.dtext = DeviceText.from_host(data, self.device)
-        self.index = DeviceIndex.from_part(data, data.parts[0], light=light,
-                                           device=self.device)
+        self.indices = [DeviceIndex.from_part(data, p, light=light, device=self.device)
+                        for p in data.parts]
         self.layouts = file_layouts(data)
+        # dimer-tier policy (see the class docstring); the auto gate's
+        # thresholds were set on a TPU and are kept so that the tier routing
+        # equals the JAX engine's
+        self._dimer_mode = dimer_tier
+        self._dimer_ok = tiers is DEFAULT_TIERS and all(
+            p.dimer is not None and p.dimer_flag_frac < 1e-3 for p in data.parts
+        )
+        self._dimer_forced_ok = all(p.dimer is not None for p in data.parts)
         self._text = None
         self._runners: dict = {}
         # unique-infix probe (see _execute_blocks); off for A-B comparisons
@@ -172,8 +188,9 @@ class MappabilityEngine:
         self.stats = {
             "overflow_blocks": 0, "max_tier": 0, "batches": 0,
             "dispatch_s": 0.0, "fetch_s": 0.0, "scatter_s": 0.0,
-            "probe_skipped": 0,
+            "dimer_tier": False, "probe_skipped": 0,
             "tier_blocks": {},  # blocks PROCESSED per tier index
+            "tiers": (),  # the ladder of the last compute, twins included
         }
         # global sequence id -> file ordinal, for exclude-pseudo
         self.seq_file_id = np.zeros(data.nseq, dtype=np.int64)
@@ -194,31 +211,39 @@ class MappabilityEngine:
         return self._text
 
     def resident_bytes(self) -> int:
-        """Bytes of index and text held on the device."""
-        return self.index.resident_bytes() + self.dtext.resident_bytes()
+        """Bytes of index parts and text held on the device."""
+        return (sum(ix.resident_bytes() for ix in self.indices)
+                + self.dtext.resident_bytes())
 
-    def _runner(self, K, errors, o, J, B, tier, cap, rev_compl, with_states=False,
-                with_exact=False, probe=False, probe_cut=None) -> BlockMapper:
-        key = (K, errors, o, J, B, tier, cap, rev_compl, with_states,
+    def _runner(self, pi, K, errors, o, J, B, tier, cap, rev_compl,
+                with_states=False, with_exact=False, probe=False,
+                probe_cut=None) -> BlockMapper:
+        key = (pi, K, errors, o, J, B, tier, cap, rev_compl, with_states,
                with_exact, probe, probe_cut)
         if key not in self._runners:
             self._runners[key] = BlockMapper(
-                self.index, self.dtext, K=K, errors=errors, overlap=o, J=J,
-                B=B, tier=tier, cap=cap, rev_compl=rev_compl,
+                self.indices[pi], self.dtext, K=K, errors=errors, overlap=o,
+                J=J, B=B, tier=tier, cap=cap, rev_compl=rev_compl,
                 with_states=with_states, with_exact=with_exact, probe=probe,
                 probe_cut=probe_cut,
             )
         return self._runners[key]
 
-    def _map_seq_ids(self, i1: np.ndarray) -> np.ndarray:
+    def _runners_for(self, *args, **kw) -> list[BlockMapper]:
+        """One batch mapper per index part (arguments of `_runner`)."""
+        return [self._runner(pi, *args, **kw) for pi in range(len(self.indices))]
+
+    def _map_seq_ids(self, pi: int, i1: np.ndarray) -> np.ndarray:
         """Map part-local sequence ids to global ids (rc half after all fwd)."""
-        part = self.data.parts[0]
+        part = self.data.parts[pi]
         np_, off = part.nseq_part, part.seq_off
         i1 = i1.astype(np.int64)
         return np.where(i1 < np_, off + i1, self.data.nseq + off + (i1 - np_))
 
-    def locate_many(self, positions: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Resolve SA rows to GLOBAL (seq_no, seq_pos), chunked on the device."""
+    def locate_many(self, pi: int,
+                    positions: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Resolve SA rows of part `pi` to GLOBAL (seq_no, seq_pos), chunked
+        on the device."""
         if self.light:
             raise RuntimeError(
                 "locate is unavailable on a light engine (SA samples were not "
@@ -234,10 +259,10 @@ class MappabilityEngine:
             part = np.ascontiguousarray(positions[s : s + ch], dtype=np.uint32)
             pos = torch.from_numpy(part.view(np.int32)).to(dev)
             valid = torch.ones(len(part), dtype=torch.uint8, device=dev)
-            r1, r2 = locate(self.index, pos, valid)
+            r1, r2 = locate(self.indices[pi], pos, valid)
             i1[s : s + len(part)] = _u32(r1)
             i2[s : s + len(part)] = _u32(r2)
-        return self._map_seq_ids(i1), i2
+        return self._map_seq_ids(pi, i1), i2
 
     # ------------------------------------------------------------------
 
@@ -310,25 +335,35 @@ class MappabilityEngine:
                         collect_exact=None):
         """Run the probe and the tier-escalating batch loop over the blocks.
 
-        `collect_exact`, if given, is (E_flo, E_size) — arrays of length
-        nkmers that receive each position's zero-error SA interval (the
-        duplicate-class key of the dedup pass).
+        `collect_exact`, if given, is (E_flo, E_size) — per-part lists of
+        arrays of length nkmers that receive each position's zero-error SA
+        interval (the duplicate-class key of the dedup pass).
         """
         self.stats["probe_skipped"] = 0
+        self.stats["dimer_tier"] = False
         self.stats["tier_blocks"] = {}
         job = _Job(c, locations, layout, starts, cnts, K, o, J, errors, cap,
                    params, csv_needed, csv, collect_exact)
         plans = plans_for(errors, o)
-        n_max = self.index.n_total
+        # pool schedules of the cost model and the dimer gates are those of
+        # the largest part (each part's mapper sizes its own pools)
+        n_max = max(p.n_total for p in self.data.parts)
         B0 = max(self.batch_blocks, -(-self.batch_kmers // J))
         levels = max(1, math.ceil(math.log2(max(2, J))))
 
+        def pools_at(tier, scale=None):
+            return infix_pool_schedule(plans, K - o, n_max,
+                                       tier.f_search / 4.0 if scale is None else scale)
+
         def block_cost(tier):
             """(time_cost, peak_slots) per block at this tier: time ~ the
-            state slots stepped (pool sizes plus extension steps), memory ~
-            the widest live state tensor."""
-            pools = infix_pool_schedule(plans, K - o, n_max, tier.f_search / 4.0)
+            state slots stepped (pool sizes plus extension steps, halved on
+            a dimer tier: two chars per row read), memory ~ the widest live
+            state tensor."""
+            pools = pools_at(tier)
             cost = int(pools.sum()) + J * levels * tier.f_extend
+            if tier.dimer:
+                cost //= 2
             peak = max(int(pools.max()), J * tier.f_extend)
             return cost, peak
 
@@ -341,8 +376,29 @@ class MappabilityEngine:
             # frontier at 4 slots instead of overflowing most blocks
             tiers[0] = dataclasses.replace(tiers[0], f_extend=4)
 
+        # dimer rows: tier 0 for wide-frontier configurations (the dimer
+        # step's fixed cost amortizes over wide pools only), and a dimer
+        # twin before every wide exact tier; far flags of a twin fall
+        # through to its mono tier, capacity overflows route past it (its
+        # capacities equal the mono tier's)
+        forced = self._dimer_mode is True and self._dimer_forced_ok
+        auto = self._dimer_mode is None and self._dimer_ok
+        use_dimer = forced or (
+            auto and float(pools_at(tiers[0], 1.0).mean()) >= 12.0
+        )
+        if use_dimer and not tiers[0].dimer:
+            tiers[0] = dataclasses.replace(tiers[0], dimer=True)
+        self.stats["dimer_tier"] = use_dimer
+        if forced or auto:
+            expanded = tiers[:1]
+            for t in tiers[1:]:
+                if t.exact and not t.dimer and float(pools_at(t).mean()) >= 12.0:
+                    expanded.append(dataclasses.replace(t, dimer=True))
+                expanded.append(t)
+            tiers = expanded
+
         pending = np.arange(len(starts), dtype=np.int64)
-        start_tier = 0  # probe residuals start at the first exact tier
+        start_tier = 0  # probe residuals start at the first exact mono tier
 
         # ---- unique-infix short-circuit probe ---------------------------
         # If a block's infix survivor mass is 1, the only candidate
@@ -359,7 +415,7 @@ class MappabilityEngine:
         )
         if probe_ok:
             tier0 = tiers[0]
-            pools0 = infix_pool_schedule(plans, K - o, n_max, tier0.f_search / 4.0)
+            pools0 = pools_at(tier0)
             # probe cut: mass only shrinks as chars are consumed, and past
             # ~log4(2n)+slack chars almost every undecided block is a true
             # repeat block the probe could never skip
@@ -369,8 +425,9 @@ class MappabilityEngine:
                 if len(pools0) - cut >= 6:
                     probe_cut = cut
             eff = pools0 if probe_cut is None else pools0[:probe_cut]
-            infix_cost = int(eff.sum())
-            probe_ok = J * levels * tier0.f_extend >= 0.5 * max(1, infix_cost)
+            halve = 2 if tier0.dimer else 1
+            infix_cost = int(eff.sum()) // halve
+            probe_ok = (J * levels * tier0.f_extend) // halve >= 0.5 * max(1, infix_cost)
         if probe_ok:
             # the probe's per-block cost is a fraction of the full
             # program's, so its batches may exceed the caller's block budget
@@ -381,26 +438,27 @@ class MappabilityEngine:
             if not abandoned:
                 # probe residuals are repeat-context blocks: ~all of them
                 # far-flag the fast tier, and all carry survivor mass >= 2,
-                # so they start at the first exact tier with a 4-slot,
+                # so they start at the first exact mono tier with a 4-slot,
                 # fast-rank extension frontier (its intervals are bounded by
                 # the survivor mass and fit the one-row window)
                 for j in range(1, len(tiers)):
-                    if tiers[j].exact:
+                    if tiers[j].exact and not tiers[j].dimer:
                         start_tier = j
                         tiers[j] = dataclasses.replace(
                             tiers[j], f_extend=max(4, tiers[j].f_extend),
                             ext_exact=False,
                         )
                         break
+        self.stats["tiers"] = tuple(tiers)
 
         # tier routing: capacity-overflow blocks skip ahead to the next tier
         # whose capacities are actually LARGER than the program they just
-        # overflowed; far-only blocks (fast-rank window misses) go to the
-        # next tier, whose same-capacity exact program suffices for them
+        # overflowed; far-only blocks (fast-rank window misses, flagged
+        # dimer sub-blocks) go to the next tier, whose same-capacity exact
+        # (or mono) program suffices for them
         def tier_caps(i):
-            pools_i = infix_pool_schedule(plans, K - o, n_max,
-                                          tiers[i].f_search / 4.0)
-            return (int(pools_i.sum()), tiers[i].f_extend, tiers[i].f_collect)
+            return (int(pools_at(tiers[i]).sum()), tiers[i].f_extend,
+                    tiers[i].f_collect)
 
         caps_by_tier = [tier_caps(i) for i in range(len(tiers))]
 
@@ -462,7 +520,9 @@ class MappabilityEngine:
             # Rescue pass: the ladder's results contract is the STATIC final
             # schedule.  Blocks that fell off the routing table before the
             # last tier, or overflowed a modified last tier, get one pass at
-            # the static largest tier of this engine's ladder before we fail.
+            # the static largest tier of this engine's ladder before we fail
+            # (the static ladder's own last tier, whatever twins the
+            # expanded ladder holds).
             last = len(tiers) - 1
             pristine = self.tiers[-1]
             last_was_static = tiers[last] == pristine
@@ -486,10 +546,13 @@ class MappabilityEngine:
         frequency 1 written; returns (residual block ids, abandoned).  After
         the first batch, a skip share below 0.3 abandons the probe (a repeat
         heavy genome or configuration would pay a second infix pass for
-        most blocks); the remaining blocks all become residual."""
+        most blocks); the remaining blocks all become residual.  On a
+        multi-part index every part's mapper runs the batch and the masses
+        are summed on the device before the last part decides."""
         stats = self.stats
-        run = self._runner(job.K, job.errors, job.o, job.J, Bp, tier0, job.cap,
-                           job.params.rev_compl, probe=True, probe_cut=probe_cut)
+        runs = self._runners_for(job.K, job.errors, job.o, job.J, Bp, tier0,
+                                 job.cap, job.params.rev_compl, probe=True,
+                                 probe_cut=probe_cut)
         residual: list[np.ndarray] = []
         abandoned = False
         skipped = 0
@@ -500,7 +563,7 @@ class MappabilityEngine:
                 residual.append(sel)
                 continue
             t0 = time.perf_counter()
-            out = self._run_batch(run, job.layout, job.starts[sel], job.cnts[sel], Bp)
+            out = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], Bp)
             t1 = time.perf_counter()
             skip = out["skip"].cpu().numpy()[: len(sel)].astype(bool)
             t2 = time.perf_counter()
@@ -529,48 +592,59 @@ class MappabilityEngine:
 
     def _run_blocks(self, job, tier, ids, B, t_i, progress):
         """Run the blocks `ids` at one tier in batches of B; scatter the
-        resolved ones (frequencies, CSV locations, zero-error keys) and
-        return (far-only, capacity) overflow ids."""
+        resolved ones (frequencies summed over the parts, CSV locations,
+        zero-error keys per part) and return (far-only, capacity) overflow
+        ids (ORed over the parts)."""
         stats = self.stats
-        run = self._runner(job.K, job.errors, job.o, job.J, B, tier, job.cap,
-                           job.params.rev_compl, with_states=job.csv_needed,
-                           with_exact=job.collect_exact is not None)
+        runs = self._runners_for(job.K, job.errors, job.o, job.J, B, tier,
+                                 job.cap, job.params.rev_compl,
+                                 with_states=job.csv_needed,
+                                 with_exact=job.collect_exact is not None)
         still_far: list[np.ndarray] = []
         still_cap: list[np.ndarray] = []
         for s in range(0, len(ids), B):
             sel = ids[s : s + B]
             nb = len(sel)
             t0 = time.perf_counter()
-            out = self._run_batch(run, job.layout, job.starts[sel], job.cnts[sel], B)
+            outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B)
             t1 = time.perf_counter()
-            res = {k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
-                       else v.cpu().numpy())
-                   for k, v in out.items()}
+            outs = [{k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
+                         else v.cpu().numpy())
+                     for k, v in out.items()}
+                    for out in outs]
             t2 = time.perf_counter()
-            ovf = res["overflow"][:nb]
-            ovfc = res["overflow_cap"][:nb]
+            ovf = np.zeros(nb, bool)
+            ovfc = np.zeros(nb, bool)
+            for res in outs:
+                ovf |= res["overflow"][:nb]
+                ovfc |= res["overflow_cap"][:nb]
+                for k in ("exact_size", "exact_size_total", "exact_flo"):
+                    if k in res:
+                        res[k] = res[k].view(np.uint32)
             bstarts, bcnts = job.starts[sel], job.cnts[sel]
-            self._scatter_batch(job.c, res["hits"], bstarts, bcnts, ~ovf)
-            for k in ("exact_size", "exact_size_total", "exact_flo"):
-                if k in res:
-                    res[k] = res[k].view(np.uint32)
+            self._scatter_batch(job.c, [res["hits"] for res in outs], job.cap,
+                                bstarts, bcnts, ~ovf)
             if job.csv_needed:
-                flo, size, err, valid = res["states"]
-                per_part = [(res["exact_size_total"], res["exact_flo"],
-                             (flo.view(np.uint32), size.view(np.uint32), err,
-                              valid.astype(bool)))]
+                per_part = []
+                for res in outs:
+                    flo, size, err, valid = res["states"]
+                    per_part.append((res["exact_size_total"], res["exact_flo"],
+                                     (flo.view(np.uint32), size.view(np.uint32),
+                                      err, valid.astype(bool))))
+                exact_size = sum(res["exact_size"].astype(np.int64) for res in outs)
                 self._csv_batch(
                     job.c, job.locations, bstarts, bcnts, ~ovf, per_part,
-                    res["exact_size"].astype(np.int64), job.layout, job.params,
-                    job.K, job.errors, job.cap, job.csv,
+                    exact_size, job.layout, job.params, job.K, job.errors,
+                    job.cap, job.csv,
                 )
             if job.collect_exact is not None:
                 E_flo, E_size = job.collect_exact
-                for bi in np.nonzero(~ovf)[0]:
-                    s0 = int(bstarts[bi])
-                    cnt = int(bcnts[bi])
-                    E_flo[s0 : s0 + cnt] = res["exact_flo"][bi, :cnt]
-                    E_size[s0 : s0 + cnt] = res["exact_size_total"][bi, :cnt]
+                for pi, res in enumerate(outs):
+                    for bi in np.nonzero(~ovf)[0]:
+                        s0 = int(bstarts[bi])
+                        cnt = int(bcnts[bi])
+                        E_flo[pi][s0 : s0 + cnt] = res["exact_flo"][bi, :cnt]
+                        E_size[pi][s0 : s0 + cnt] = res["exact_size_total"][bi, :cnt]
             stats["dispatch_s"] += t1 - t0
             stats["fetch_s"] += t2 - t1
             stats["scatter_s"] += time.perf_counter() - t2
@@ -586,7 +660,11 @@ class MappabilityEngine:
         cat = lambda xs: np.concatenate(xs) if xs else np.empty(0, np.int64)  # noqa: E731
         return cat(still_far), cat(still_cap)
 
-    def _run_batch(self, run, layout, bstarts, bcnts, B):
+    def _run_batch(self, runs, layout, bstarts, bcnts, B):
+        """Run one batch through every part's mapper.  Returns the list of
+        their outputs; for a probe, the last part's output (its skip
+        decision covers every part: the earlier parts' masses ride along in
+        the accumulator)."""
         nb = len(bstarts)
         pad_b = B - nb
         starts = np.concatenate([bstarts, np.zeros(pad_b, np.int64)])
@@ -596,11 +674,23 @@ class MappabilityEngine:
         gstarts = (layout.start + starts).astype(np.uint32).view(np.int32)
         limit = layout.start + layout.length
         dev = self.device
-        return run(torch.from_numpy(gstarts).to(dev),
-                   torch.from_numpy(cnts).to(dev), limit)
+        st = torch.from_numpy(gstarts).to(dev)
+        ct = torch.from_numpy(cnts).to(dev)
+        if not runs[0].probe:
+            return [run(st, ct, limit) for run in runs]
+        acc = None
+        for run in runs[:-1]:
+            acc = run(st, ct, limit, acc=acc, last=False)["acc"]
+        return runs[-1](st, ct, limit, acc=acc)
 
     @staticmethod
-    def _scatter_batch(c, hits, bstarts, bcnts, ok):
+    def _scatter_batch(c, hits_parts, cap, bstarts, bcnts, ok):
+        """Write the resolved blocks' frequencies: per-part counts add up
+        exactly (matches never span parts), clamped to cap."""
+        hits = np.zeros(hits_parts[0].shape, np.uint32)
+        for h in hits_parts:
+            hits += h
+        np.minimum(hits, np.uint32(cap), out=hits)
         for b in np.nonzero(ok)[0]:
             i0 = int(bstarts[b])
             cnt = int(bcnts[b])
@@ -619,8 +709,9 @@ class MappabilityEngine:
 
         Class keys: the packed k-mer value (K <= 27) or — for larger K when a
         sample says duplicates are frequent — the zero-error SA interval
-        (flo, size) from a cheap e=0 pre-pass, which uniquely identifies the
-        k-mer string among k-mers that match themselves.  Returns False
+        (flo, size) of every index part from a cheap e=0 pre-pass, which
+        uniquely identifies the k-mer string among k-mers that match
+        themselves.  Returns False
         when dedup is not worthwhile (the caller runs normally).
         """
         if K <= 27 and nkmers <= (1 << 31):
@@ -639,20 +730,25 @@ class MappabilityEngine:
                 return False  # the e=0 pre-pass would equal the main pass
             if self._dup_rate(layout, text, K, nkmers) < 0.3:
                 return False
-            E_flo = np.zeros(nkmers, np.uint32)
-            E_size = np.zeros(nkmers, np.uint32)
+            P = len(self.data.parts)
+            E_flo = [np.zeros(nkmers, np.uint32) for _ in range(P)]
+            E_size = [np.zeros(nkmers, np.uint32) for _ in range(P)]
             self._execute_blocks(
                 np.zeros_like(c), {}, layout, starts, cnts, K, o, J, 0, cap,
                 params, False, False, collect_exact=(E_flo, E_size),
             )
-            key_arr = np.zeros((nkmers, 3), dtype=np.uint32)
-            key_arr[:, 0] = E_flo
-            key_arr[:, 1] = E_size
+            # one (flo, size) column pair per part
+            key_arr = np.zeros((nkmers, 2 * P + 1), dtype=np.uint32)
+            tot = np.zeros(nkmers, np.uint64)
+            for pi in range(P):
+                key_arr[:, 2 * pi] = E_flo[pi]
+                key_arr[:, 2 * pi + 1] = E_size[pi]
+                tot += E_size[pi]
             # k-mers that match nothing (they contain N: N matches nothing,
             # not even N) are NOT identified by their interval; give each its
             # own class via the extra column
-            nomatch = E_size == 0
-            key_arr[nomatch, 2] = np.arange(1, int(nomatch.sum()) + 1, dtype=np.uint32)
+            nomatch = tot == 0
+            key_arr[nomatch, 2 * P] = np.arange(1, int(nomatch.sum()) + 1, dtype=np.uint32)
             void = np.ascontiguousarray(key_arr).view(
                 np.dtype((np.void, key_arr.shape[1] * 4))
             ).ravel()
@@ -718,15 +814,16 @@ class MappabilityEngine:
         """CSV location lists + exclude-pseudo (algo.hpp:311-400).
 
         `per_part` is a list of (exact_size_total, exact_flo, states) per
-        index part (one here); located rows are grouped per k-mer by one
-        global lexsort over (k-mer, kind, strand), with per-key work
+        index part; each part's rows are located against that part and
+        mapped to global sequence ids, then all rows are grouped per k-mer
+        by one global lexsort over (k-mer, kind, strand), with per-key work
         reduced to array-view slicing.
         """
         nb = len(bstarts)
         J = per_part[0][2][1].shape[1] if per_part else 0
         jmask = (np.arange(J)[None, :] < np.asarray(bcnts)[:, None]) & np.asarray(ok)[:, None]
         kb_l, kj_l, kk_l, i1_l, i2_l = [], [], [], [], []
-        for exact_size_total, exact_flo, states in per_part:
+        for pi, (exact_size_total, exact_flo, states) in enumerate(per_part):
             flo, size, err, valid = states
             # "all" rows: every valid state's interval; "exact" rows: the
             # zero-error interval of k-mers with more than one forward
@@ -749,7 +846,7 @@ class MappabilityEngine:
             offs = np.zeros(len(all_sizes), np.int64)
             np.cumsum(all_sizes[:-1], out=offs[1:])
             all_rows = np.repeat(all_flos - offs, all_sizes) + np.arange(total)
-            i1, i2 = self.locate_many(all_rows)
+            i1, i2 = self.locate_many(pi, all_rows)
 
             kb_l.append(np.repeat(np.concatenate([bs, ebs]), all_sizes))
             kj_l.append(np.repeat(np.concatenate([js, ejs]), all_sizes))

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Six kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
+Seven kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
 into one shared library each, loaded with ctypes):
 
   extract_needles  needle windows from the packed text
@@ -9,8 +9,11 @@ into one shared library each, loaded with ctypes):
   compact          first F valid candidates of every frontier row, in order
   count_tail       per-k-mer saturating occurrence counts (+ strand split),
                    and on request each k-mer's zero-error interval
-  probe_mass       the unique-infix probe's per-plan survivor mass and skip
+  probe_mass       the unique-infix probe's per-plan survivor mass and skip,
+                   summed over the parts of a multi-part index
   locate           SA rows to (sequence, position) by LF walks (CSV, -ep)
+  dimer_step       the candidate step on the dimer rank rows: 0, 1 or 2
+                   characters per state and row read
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it (the CPU tests' path and the reference the kernel
@@ -32,8 +35,9 @@ import shutil
 import subprocess
 
 import torch
+import torch.nn.functional as Fn
 
-from genmap_tpu_torch.index.fmindex import sub_width
+from genmap_tpu_torch.index.fmindex import D_WIDTH, sub_width
 from genmap_tpu_torch.ops import rank
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -459,15 +463,16 @@ def count_tail(index, st, valid, cnt, J: int, cap: int, rev_compl: bool,
 # ---------------------------------------------------------------------------
 
 PROBE_MASS = Kernel(
-    # the probe branch of block_mapper_impl (mass_p, nwin, skip test)
+    # the probe branch of block_mapper_impl (mass_p, nwin, skip test), and
+    # the engine's sum of the masses over index parts
     "probe_mass", "probe_mass.cu", "genmap_tpu/search/engine.py:1251",
-    [_P, _P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    [_P, _P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 )
 PROBE_MAX_PLANS = 16
 
 
 def probe_mass_plain(st, valid, ovf, needles, thr, has_n: bool,
-                     with_mass: bool = False):
+                     with_mass: bool = False, acc=None, last: bool = True):
     """Plain PyTorch version of `probe_mass`."""
     _R, B, F = st.shape
     P = thr.shape[0]
@@ -480,14 +485,20 @@ def probe_mass_plain(st, valid, ovf, needles, thr, has_n: bool,
         nwin = (needles == 4).any(dim=-1)
     else:
         nwin = torch.zeros(B, dtype=torch.bool, device=st.device)
-    skip = ((mass <= thr.to(torch.int64)[None, :]).all(dim=-1)
-            & ~ovf.bool() & ~nwin).to(torch.uint8)
+    bad = ovf.bool() | nwin
+    if acc is not None:
+        mass = (mass + acc[:, :P]).clamp(max=rank.MASK32)
+        bad = bad | (acc[:, P] != 0)
+    if not last:
+        return torch.cat([mass, bad.to(torch.int64)[:, None]], dim=1)
+    skip = ((mass <= thr.to(torch.int64)[None, :]).all(dim=-1) & ~bad).to(torch.uint8)
     if not with_mass:
         return skip
     return skip, rank.as_i32(mass), nwin.to(torch.uint8)
 
 
-def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = False):
+def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = False,
+               acc=None, last: bool = True):
     """The unique-infix probe's skip decision of every block.
 
     st: [5, B, F] int32 infix survivor states (size row 2, plan id row 4);
@@ -497,29 +508,47 @@ def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = Fals
     survivor size is <= thr[p], it did not overflow and (Dna5) its needle
     window holds no N.  Masses are summed in 64 bits and saturate at
     2^32 - 1.  Returns skip [B] uint8, or with with_mass (skip, mass_p [B, P]
-    int32 holding uint32, nwin [B] uint8)."""
+    int32 holding uint32, nwin [B] uint8).
+
+    Multi-part indexes: `acc` is the running [B, P + 1] int64 sum of the
+    earlier parts (per-plan masses, saturated at 2^32 - 1, and in column P
+    their overflow and N-window flags ORed); a launch with last=False adds
+    this part and returns the new accumulator (a new tensor; `acc` is not
+    written), the launch for the last part (last=True) decides on the sum.
+    With one part (acc None, last True) the launch is the plain skip test."""
     if not st.is_cuda:
-        return probe_mass_plain(st, valid, ovf, needles, thr, has_n, with_mass)
+        return probe_mass_plain(st, valid, ovf, needles, thr, has_n, with_mass,
+                                acc, last)
     dev = st.device
     R, B, F = st.shape
     P = thr.shape[0]
     if R != 5 or not 1 <= P <= PROBE_MAX_PLANS:
         raise ValueError(f"probe_mass: bad geometry R={R} P={P}")
+    if with_mass and not last:
+        raise ValueError("probe_mass: with_mass needs last=True")
     Ln = needles.shape[1]
     _check(st, "st", torch.int32, device=dev)
     _check(valid, "valid", torch.uint8, (B, F), dev)
     _check(ovf, "ovf", torch.uint8, (B,), dev)
     _check(needles, "needles", torch.uint8, (B, Ln), dev)
     _check(thr, "thr", torch.int32, (P,), dev)
-    skip = torch.empty((B,), dtype=torch.uint8, device=dev)
+    if acc is not None:
+        _check(acc, "acc", torch.int64, (B, P + 1), dev)
+    skip = torch.empty((B,), dtype=torch.uint8, device=dev) if last else None
+    acc_out = None if last else torch.empty((B, P + 1), dtype=torch.int64, device=dev)
     mass = torch.empty((B, P), dtype=torch.int32, device=dev) if with_mass else None
     nwin = torch.empty((B,), dtype=torch.uint8, device=dev) if with_mass else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     PROBE_MASS.launch(
         st.data_ptr(), valid.data_ptr(), B, F, P, ovf.data_ptr(),
-        needles.data_ptr(), Ln, int(has_n), thr.data_ptr(), skip.data_ptr(),
-        mass.data_ptr() if with_mass else None,
-        nwin.data_ptr() if with_mass else None, _stream(st),
+        needles.data_ptr(), Ln, int(has_n), thr.data_ptr(), ptr(acc),
+        ptr(acc_out), ptr(skip), ptr(mass), ptr(nwin), _stream(st),
     )
+    if not last:
+        return acc_out
     return (skip, mass, nwin) if with_mass else skip
 
 
@@ -594,5 +623,158 @@ def locate(index, pos, valid):
     return i1, i2
 
 
+# ---------------------------------------------------------------------------
+# 7. dimer_step
+# ---------------------------------------------------------------------------
+
+DIMER_STEP = Kernel(
+    # _candidate_step_fused, with ops/rank.py:397-570 _dimer_occ, _dimer_tail,
+    # extend_dimer_fast and extend_dimer folded in
+    "dimer_step", "dimer_step.cu", "genmap_tpu/search/engine.py:262",
+    [_P, _I, _P, _P, _P, _I, _P, _L, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+     _P, _I, _I, _I, _I, _P, _P, _P, _P],
+)
+DIMER_SLOTS = 16
+
+
+def dimer_step_plain(index, st, valid, *, per_block, inner, consume, right,
+                     u_mid, u_end, l_mid, l_end, nchA, nchB, exact,
+                     with_mono, with_pass):
+    """Plain PyTorch version of `dimer_step` (same arguments, same results).
+    Only valid consuming states are computed: invalid ones give all-zero
+    outputs and passthrough ones are copied, as in the kernel."""
+    R, N = st.shape
+    A = index.nchars
+    G = right.shape[0]
+    dev = st.device
+    blk, g = _state_groups(st, per_block, inner, G)
+    v = valid.bool()
+    cons = consume.to(torch.int64)[g]
+    slot = torch.arange(DIMER_SLOTS, dtype=torch.int64, device=dev)[None, :]
+    passing = (cons == 0) if with_pass else torch.zeros_like(v)
+
+    out = torch.zeros((R, N, DIMER_SLOTS), dtype=torch.int32, device=dev)
+    idle = torch.nonzero(passing).squeeze(1)
+    out[:, idle] = st[:, idle, None]
+    valid2 = passing[:, None] & v[:, None] & (slot == 0)
+    far = torch.zeros(N, dtype=torch.bool, device=dev)
+
+    w = torch.nonzero(v & ~passing).squeeze(1)
+    g, blk, cons = g[w], blk[w], cons[w]
+    flo, rlo, size = (rank.u32(st[r, w]) for r in range(3))
+    rb = right.bool()[g][:, None]
+    mlo = torch.where(rb[:, 0], rlo, flo)
+    olo = torch.where(rb[:, 0], flo, rlo)
+    ext = rank.extend_dimer if exact else rank.extend_dimer_fast
+    (d_mlo, d_size, d_olo), (m_mlo, m_size, m_olo), far_w = ext(index, mlo, size, olo)
+
+    def bound(t):
+        return t.to(torch.int64)[g][:, None]
+
+    a = nchA.to(torch.int64)[blk, g][:, None]
+    b = nchB.to(torch.int64)[blk, g][:, None]
+    err = st[3, w].to(torch.int64)[:, None]
+    # dimer candidates: a left step consumes (c2, c1), a right step their
+    # complements
+    c2, c1 = slot >> 2, slot & 3
+    first = torch.where(rb, 3 - c2, c2)
+    second = torch.where(rb, 3 - c1, c1)
+    err_mid = err + ((first != a) | (a >= 4)).to(torch.int64)
+    err2 = err_mid + ((second != b) | (b >= 4)).to(torch.int64)
+    ok = ((err_mid <= bound(u_mid)) & (err_mid >= bound(l_mid))
+          & (err2 <= bound(u_end)) & (err2 >= bound(l_end)) & (d_size > 0))
+    nflo = torch.where(rb, d_olo, d_mlo)
+    nrlo = torch.where(rb, d_mlo, d_olo)
+    nsz = d_size
+    if with_mono:  # mono candidates in slots 0..A-1, comp-permuted on right steps
+        perm = torch.tensor(rank.comp_perm(A), device=dev)
+        mm = torch.where(rb, m_mlo[:, perm], m_mlo)
+        ms = torch.where(rb, m_size[:, perm], m_size)
+        mo = torch.where(rb, m_olo[:, perm], m_olo)
+        err_m = err + ((slot[:, :A] != a) | (a >= 4)).to(torch.int64)
+        ok_m = (err_m <= bound(u_end)) & (err_m >= bound(l_end)) & (ms > 0)
+
+        def pad(x):
+            return Fn.pad(x, (0, DIMER_SLOTS - A))
+
+        mono = (cons != 2)[:, None]
+        nflo = torch.where(mono, pad(torch.where(rb, mo, mm)), nflo)
+        nrlo = torch.where(mono, pad(torch.where(rb, mm, mo)), nrlo)
+        nsz = torch.where(mono, pad(ms), nsz)
+        err2 = torch.where(mono, pad(err_m), err2)
+        ok = torch.where(mono, pad(ok_m), ok)
+    outs = [nflo, nrlo, nsz, err2]
+    if R == 5:
+        outs.append(g[:, None].expand(-1, DIMER_SLOTS))
+    out[:, w] = rank.as_i32(torch.stack(outs))
+    valid2[w] = ok & ~far_w[:, None]
+    far[w] = far_w
+    return out, valid2.to(torch.uint8), far.to(torch.uint8)
+
+
+def dimer_step(index, st, valid, *, per_block: int, inner: int, consume,
+               right, u_mid, u_end, l_mid, l_end, nchA, nchB, exact: bool,
+               with_mono: bool, with_pass: bool):
+    """One search step of N states on the dimer rank rows.
+
+    st / valid / per_block / inner and the groups: as in `candidate_step`.
+    Per group: consume [G] uint8 (2: a dimer step consuming nchA then nchB,
+    1: a mono step consuming nchA, 0: passthrough), right [G] uint8, and the
+    cumulative error bounds after the first char (u_mid, l_mid) and after
+    the step (u_end, l_end), [G] int32; nchA / nchB [N // per_block, G]
+    uint8.  `with_mono` / `with_pass` say whether consume 1 / 0 occur; a
+    state takes the dimer path unless they do.  `exact` reads one dimer row
+    per bound; otherwise one paired row, raising `far` for intervals wider
+    than its 256-symbol window; both raise `far` on flagged
+    (sentinel/N-adjacent) sub-blocks.
+
+    Returns (out [R, N, 16] int32, valid2 [N, 16] uint8, far [N] uint8):
+    slot t of a dimer step is the state extended by the dimer of code t
+    (c2*4 + c1, prepended c1c2), slots 0..A-1 of a mono step by one
+    character, slot 0 of a passthrough the state itself; err counts the
+    mismatching chars (N mismatches every candidate), valid2 prunes by the
+    bounds, empty intervals and far."""
+    if not st.is_cuda:
+        return dimer_step_plain(index, st, valid, per_block=per_block,
+                                inner=inner, consume=consume, right=right,
+                                u_mid=u_mid, u_end=u_end, l_mid=l_mid,
+                                l_end=l_end, nchA=nchA, nchB=nchB, exact=exact,
+                                with_mono=with_mono, with_pass=with_pass)
+    dev = st.device
+    R, N = st.shape
+    G = right.shape[0]
+    if R not in (4, 5) or N % per_block or per_block % inner:
+        raise ValueError(f"dimer_step: bad geometry R={R} N={N} "
+                         f"per_block={per_block} inner={inner}")
+    if not index.has_dimer:
+        raise ValueError("dimer_step: the index part has no dimer rows")
+    _check(st, "st", torch.int32, device=dev)
+    _check(valid, "valid", torch.uint8, (N,), dev)
+    for name, t in (("nchA", nchA), ("nchB", nchB)):
+        _check(t, name, torch.uint8, (N // per_block, G), dev)
+    for name, t, dt in (("consume", consume, torch.uint8),
+                        ("right", right, torch.uint8),
+                        ("u_mid", u_mid, torch.int32), ("u_end", u_end, torch.int32),
+                        ("l_mid", l_mid, torch.int32), ("l_end", l_end, torch.int32)):
+        _check(t, name, dt, (G,), dev)
+    _check(index.dimer_blocks, "dimer_blocks", torch.int32,
+           (index.dimer_blocks.shape[0], 2 * D_WIDTH), dev)
+    out = torch.empty((R, N, DIMER_SLOTS), dtype=torch.int32, device=dev)
+    valid2 = torch.empty((N, DIMER_SLOTS), dtype=torch.uint8, device=dev)
+    far = torch.empty((N,), dtype=torch.uint8, device=dev)
+    if N == 0:
+        return out, valid2, far
+    DIMER_STEP.launch(
+        index.dimer_blocks.data_ptr(), index.dimer_blocks.shape[1],
+        index.C2.data_ptr(), index.C.data_ptr(), st.data_ptr(), R,
+        valid.data_ptr(), N, per_block, inner, G, consume.data_ptr(),
+        right.data_ptr(), u_mid.data_ptr(), u_end.data_ptr(), l_mid.data_ptr(),
+        l_end.data_ptr(), nchA.data_ptr(), nchB.data_ptr(), int(exact),
+        int(with_mono), int(with_pass), index.nchars, out.data_ptr(),
+        valid2.data_ptr(), far.data_ptr(), _stream(st),
+    )
+    return out, valid2, far
+
+
 KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
-                               COUNT_TAIL, PROBE_MASS, LOCATE)}
+                               COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP)}

@@ -37,6 +37,10 @@ import torch
 
 from genmap_tpu_torch.index.fmindex import (
     BVWORDS,
+    D_CUM,
+    D_DELTA,
+    D_MONO,
+    D_WIDTH,
     SUBBITS,
     SUBWORDS,
     S_LE,
@@ -132,6 +136,10 @@ class DeviceIndex:
     # (levels concatenated, see seed_level_offset); empty = disabled
     seed_mlo: torch.Tensor
     seed_size: torch.Tensor
+    # dimer rank rows (paired [nb, 2*D_WIDTH]) + C2[16]; a [1, 2*D_WIDTH]
+    # placeholder when the part has none
+    dimer_blocks: torch.Tensor
+    C2: torch.Tensor
     has_n: bool
     sampling: int
     n_total: int
@@ -146,6 +154,10 @@ class DeviceIndex:
         return self.seed_mlo.shape[0] > 0
 
     @property
+    def has_dimer(self) -> bool:
+        return self.dimer_blocks.shape[0] > 1
+
+    @property
     def nchars(self) -> int:
         return 5 if self.has_n else 4
 
@@ -154,7 +166,7 @@ class DeviceIndex:
             t.numel() * t.element_size()
             for t in (self.fwd_blocks, self.C, self.sa_i1, self.sa_i2,
                       self.strand_blocks, self.ind_blocks, self.seed_mlo,
-                      self.seed_size)
+                      self.seed_size, self.dimer_blocks, self.C2)
         )
 
     @staticmethod
@@ -168,13 +180,16 @@ class DeviceIndex:
         sa_i1: np.ndarray | None = None,
         sa_i2: np.ndarray | None = None,
         ind_blocks: np.ndarray | None = None,
+        dimer: np.ndarray | None = None,
+        C2: np.ndarray | None = None,
         device="cuda",
     ) -> "DeviceIndex":
         """Upload one part from its host arrays: `blocks` are the rank
         SUB-rows of `index/fmindex.py` (paired here), `C` the [6] C array.
         The SA samples and indicator rows are only read by `locate` (CSV,
-        exclude-pseudo); pass None to skip them.  The seed tables are built
-        on the device."""
+        exclude-pseudo); pass None to skip them.  `dimer` / `C2` are the
+        part's dimer sub-rows and C2 array (None: no dimer rows).  The seed
+        tables are built on the device."""
         dev = resolve_device(device)
         light = sa_i1 is None
         C = np.asarray(C)
@@ -190,6 +205,11 @@ class DeviceIndex:
             if light or ind_blocks is None else np_i32(ind_blocks, dev),
             seed_mlo=torch.zeros(0, dtype=torch.int32, device=dev),
             seed_size=torch.zeros(0, dtype=torch.int32, device=dev),
+            dimer_blocks=np_i32(wide_rows(np.asarray(dimer, dtype=np.uint32)), dev)
+            if dimer is not None
+            else torch.zeros((1, 2 * D_WIDTH), dtype=torch.int32, device=dev),
+            C2=np_i32(C2, dev) if C2 is not None
+            else torch.zeros(16, dtype=torch.int32, device=dev),
             has_n=bool(has_n),
             sampling=int(sampling),
             n_total=int(C[5]),
@@ -202,13 +222,15 @@ class DeviceIndex:
     ) -> "DeviceIndex":
         """Upload one part of a host index.  `light=True` skips the
         sampled-SA values and the sampling-indicator rank rows, which only
-        `locate` (CSV / exclude-pseudo) reads."""
+        `locate` (CSV / exclude-pseudo) reads; the dimer rows go up in both
+        modes, whenever the part has them."""
         return DeviceIndex.from_numpy(
             part.fwd.blocks, part.C, part.strand_blocks,
             has_n=data.has_n, sampling=data.sampling,
             sa_i1=None if light else part.sa_i1,
             sa_i2=None if light else part.sa_i2,
             ind_blocks=None if light else part.ind_blocks,
+            dimer=part.dimer, C2=part.C2,
             device=device,
         )
 
@@ -331,6 +353,119 @@ def extend_core_fast(index: DeviceIndex, mlo, size, olo):
     nmlo, nsize, nolo = _fmd_tail(u32(index.C), occ_lo, occ_hi, sent_lo,
                                   sent_hi, olo)
     return nmlo, nsize, nolo, far
+
+
+# ---------------------------------------------------------------------------
+# Dimer (two symbols per row read) rank path.  Layout: index/fmindex.py
+# build_dimer_rows.  Candidate axis: code = c2*4 + c1 for the prepended dimer
+# c1c2 (c2 next to the current pattern).
+# ---------------------------------------------------------------------------
+
+_M1 = 0x11111111
+
+
+def _nibble_mask(nf: torch.Tensor) -> torch.Tensor:
+    """Mask of the 4-bit fields < nf of one word (nf: int64 in 0..8)."""
+    return (torch.ones_like(nf) << (4 * nf)) - 1
+
+
+def _dimer_occ(sub: torch.Tensor, p: torch.Tensor):
+    """All-threshold counts at p from its covering 64-word dimer sub-row.
+
+    `sub` is [..., D_WIDTH] int32 bits, `p` int64.  Returns (L [..., 16],
+    Lm [..., 4], flag [...]) as int64 values mod 2^32 and a bool:
+      L[t]  = #rows < p with a valid dimer code <= t
+      Lm[y] = #rows < p with a real ACGT BWT char <= y
+      flag  = the sub-block holds a sentinel/N-adjacent row (bit 31 of the
+              first mono count, masked off before that word is a count)
+    The in-tail counts compare every 4-bit field below p with each code
+    (nibble-equality masks and a popcount); masked-out fields never count,
+    so code 0 does not pick up the zeroed fields past p."""
+    dev = p.device
+    off = p & 127
+    d = off >> 4  # 16-symbol group of p
+    tail = off & 15
+    fields = u32(sub[..., 0:16])
+    w0 = fields.gather(-1, (2 * d)[..., None])
+    w1 = fields.gather(-1, (2 * d + 1)[..., None])
+    # delta bytes of group d: byte t of the 4-word group d-1 (zero for d = 0)
+    dw = u32(sub[..., D_DELTA : D_DELTA + 28]).reshape(*sub.shape[:-1], 7, 4)
+    g = (d - 1).clamp(min=0)[..., None, None].expand(*d.shape, 1, 4)
+    dsel = torch.where((d > 0)[..., None], dw.gather(-2, g)[..., 0, :], 0)
+    shifts = 8 * torch.arange(4, dtype=torch.int64, device=dev)
+    dbytes = ((dsel[..., :, None] >> shifts) & 0xFF).reshape(*dsel.shape[:-1], 16)
+
+    m0 = _nibble_mask(tail.clamp(0, 8)) & _M1
+    m1 = _nibble_mask((tail - 8).clamp(0, 8)) & _M1
+    pat = torch.arange(16, dtype=torch.int64, device=dev) * _M1
+
+    def eq(w, m):  # per code: 1 bits at the fields equal to it, below p
+        x = w ^ pat
+        return ~(x | (x >> 1) | (x >> 2) | (x >> 3)) & m[..., None]
+
+    cnt = popcount32(eq(w0, m0)) + popcount32(eq(w1, m1))
+    inblk = dbytes + torch.cumsum(cnt, dim=-1)
+    L = (u32(sub[..., D_CUM : D_CUM + 16]) + inblk) & MASK32
+    mono = u32(sub[..., D_MONO : D_MONO + 4])
+    flag = (mono[..., 0] >> 31) == 1
+    mono = torch.cat([mono[..., :1] & 0x7FFFFFFF, mono[..., 1:]], dim=-1)
+    Lm = (mono + inblk[..., 3::4]) & MASK32
+    return L, Lm, flag
+
+
+def _dimer_tail(index: DeviceIndex, L_lo, L_hi, Lm_lo, Lm_hi, olo):
+    """FMD results from the two bounds' threshold counts (valid only for
+    unflagged sub-blocks, where the sentinel and N terms vanish).
+
+    Dimer candidates [..., 16] (code = c2*4 + c1):
+      mlo[code] = C2[code] + (L_code - L_code-1)(lo), size = the slice's
+      difference, olo[code] = olo + (L_15 - L_code)(slice).
+    Mono candidates [..., A] (prepended char y): the same from the mono les
+    (thresholds 3, 7, 11, 15); the N candidate (A = 5) has size 0."""
+
+    def diff(x):
+        return (x - torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)) & MASK32
+
+    S = (L_hi - L_lo) & MASK32
+    d_mlo = (u32(index.C2) + diff(L_lo)) & MASK32
+    d_size = diff(S)
+    d_olo = (olo[..., None] + S[..., 15:16] - S) & MASK32
+    Sm = (Lm_hi - Lm_lo) & MASK32
+    m = [(u32(index.C[:4]) + diff(Lm_lo)) & MASK32, diff(Sm),
+         (olo[..., None] + Sm[..., 3:4] - Sm) & MASK32]
+    if index.has_n:
+        m = [torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1) for x in m]
+    return (d_mlo, d_size, d_olo), tuple(m)
+
+
+def extend_dimer_fast(index: DeviceIndex, mlo, size, olo):
+    """One-row dimer + mono extension from the paired dimer row at mlo >> 7.
+
+    Returns ((d_mlo, d_size, d_olo) [..., 16], (m_mlo, m_size, m_olo)
+    [..., A], far): `far` marks states whose results are not valid, an
+    interval wider than the row's 256-symbol window or a flagged sub-block
+    read."""
+    q = mlo >> 7
+    rows = index.dimer_blocks[q]
+    hi = (mlo + size) & MASK32
+    dq = (hi >> 7) - q
+    sub_hi = torch.where((dq > 0)[..., None], rows[..., D_WIDTH:], rows[..., :D_WIDTH])
+    L0, Lm0, f0 = _dimer_occ(rows[..., :D_WIDTH], mlo)
+    L1, Lm1, f1 = _dimer_occ(sub_hi, hi)
+    dres, mres = _dimer_tail(index, L0, L1, Lm0, Lm1, olo)
+    return dres, mres, (dq > 1) | f0 | f1
+
+
+def extend_dimer(index: DeviceIndex, mlo, size, olo):
+    """Two-row dimer + mono extension, exact for any interval width: one
+    row per bound.  A sentinel/N-adjacent row inside a wide slice is missing
+    from L_15, so `size != L_15(slice)` flags it (`far`) without reading the
+    rows between the bounds."""
+    hi = (mlo + size) & MASK32
+    L0, Lm0, f0 = _dimer_occ(index.dimer_blocks[mlo >> 7, :D_WIDTH], mlo)
+    L1, Lm1, f1 = _dimer_occ(index.dimer_blocks[hi >> 7, :D_WIDTH], hi)
+    dres, mres = _dimer_tail(index, L0, L1, Lm0, Lm1, olo)
+    return dres, mres, f0 | f1 | (((L1[..., 15] - L0[..., 15]) & MASK32) != size)
 
 
 def rc_strand_count(index: DeviceIndex, p: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Lockstep (k,e)-search over blocks of adjacent k-mers, on torch tensors.
 
-Port of `genmap_tpu/search/engine.py` (the mono-row path with the
-unique-infix probe, without the split pipeline or the dimer table; those
-only change speed, never results):
+Port of `genmap_tpu/search/engine.py` (the fused per-tier programs on the
+mono and on the dimer rank rows, with the unique-infix probe; without the
+split pipeline, which only changes speed, never results):
 
   * a batch of B blocks is processed at once; each block contributes one
     common overlap infix that is searched with every optimal search scheme
@@ -19,6 +19,11 @@ only change speed, never results):
   * the probe mode runs (a prefix of) the infix scan only and decides per
     block whether its survivor mass proves every k-mer frequency 1
     (`kernels.probe_mass`), so the host can skip the extension
+  * a dimer tier (`Tier.dimer`) runs the same scan and tree on the dimer
+    rank rows, two pattern characters per row read (`kernels.dimer_step`):
+    plan steps fuse pairwise within each same-direction run, and a state
+    that touches a flagged (sentinel/N-adjacent) sub-block or leaves the
+    fast window flags its block to the next (mono) tier
 
 PyTorch runs eagerly, so the JAX package's `lax.scan` segments are Python
 loops over steps; per-step plan attributes (needle position, direction,
@@ -55,13 +60,17 @@ class Tier:
 
     `exact=False` uses the one-row fast rank path, which is exact only for
     intervals that fit the row's 1024-symbol window; wider intervals flag
-    the block and it re-runs on the next (exact) tier.  Capacity and rank
-    mode only affect speed, never results."""
+    the block and it re-runs on the next (exact) tier.  `dimer=True`
+    consumes TWO pattern characters per row read from the dimer rank rows;
+    blocks touching a flagged (sentinel/N-adjacent) sub-block escalate to
+    the next mono tier.  Capacity and rank mode only affect speed, never
+    results."""
 
     f_search: int
     f_collect: int
     f_extend: int
     exact: bool = True
+    dimer: bool = False
     # extension-phase rank mode override (None = follow `exact`).  Probe
     # residual cohorts run an exact infix but a fast one-row extension:
     # extension intervals are bounded by the block's survivor mass, so the
@@ -157,6 +166,41 @@ def _plan_schedule(plans, infix_off):
         if t != T:
             raise ValueError(f"plan {p} covers {t} of {T} infix steps")
     return pos, right, u, lreq
+
+
+def _plan_schedule_fused(plans, infix_off, t0: int) -> np.ndarray:
+    """Fuse each plan's char steps [t0:] into 1- or 2-char dimer steps.
+
+    Two consecutive chars fuse iff the plan consumes them in the same
+    direction (segments are maximal same-direction runs, so only segment
+    boundaries force single steps).  Plans finish after different fused-step
+    counts; shorter plans pad with consume=0 (passthrough).  Returns [9, Tf,
+    P] int32: consume, right, posA, posB, u_mid, u_end, l_mid, l_end, and
+    charidx (chars consumed before the step; T for pad steps)."""
+    pos_s, right_s, u_s, lreq_s = _plan_schedule(plans, infix_off)
+    T, P = u_s.shape
+    per_plan = []
+    for p in range(P):
+        steps = []
+        i = t0
+        while i < T:
+            if i + 1 < T and right_s[i, p] == right_s[i + 1, p]:
+                steps.append((2, right_s[i, p], pos_s[i, p], pos_s[i + 1, p],
+                              u_s[i, p], u_s[i + 1, p], lreq_s[i, p],
+                              lreq_s[i + 1, p], i))
+                i += 2
+            else:
+                steps.append((1, right_s[i, p], pos_s[i, p], pos_s[i, p],
+                              u_s[i, p], u_s[i, p], lreq_s[i, p], lreq_s[i, p], i))
+                i += 1
+        per_plan.append(steps)
+    Tf = max(len(s) for s in per_plan) if per_plan else 0
+    out = np.zeros((9, Tf, P), np.int32)
+    out[8] = T  # charidx of pad steps
+    for p, steps in enumerate(per_plan):
+        for t, s in enumerate(steps):
+            out[:, t, p] = s
+    return out
 
 
 def extension_extra_estimate(plans, infix_off, n_total) -> float:
@@ -323,6 +367,111 @@ def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
     return (st, valid), ovf_cap, ovf_far
 
 
+class _DimerSchedule:
+    """Device-side per-step tables of the pooled infix scan on the dimer
+    rows: each plan's char steps after the seeded prefix (`t_seed` chars)
+    fused into 1- or 2-char steps (`_plan_schedule_fused`), with the probe's
+    cut applied; the starting pool F0, and per fused step its pool, rank
+    mode and kind (whether any plan takes a 1-char step, whether any passes
+    through)."""
+
+    def __init__(self, plans, infix_off, t_seed: int, pools, tier: Tier,
+                 exact_steps: int, stop_at, dev):
+        T = plans[0].n_steps
+        P = len(plans)
+        pools = np.asarray(pools, np.int64)
+        self.t_seed = t_seed
+        self.F0 = int(pools[t_seed]) if t_seed < T else int(pools[-1])
+        sched = _plan_schedule_fused(plans, infix_off, t_seed)
+        Tf = sched.shape[1]
+        if stop_at is not None:
+            # truncate so NO plan consumes a char index >= the cut: the
+            # probe's thresholds come from the l-bounds of the first `cut`
+            # chars only, and a 2-char step straddling the cut would apply
+            # the next char's l-bound (and kill the self-match there).
+            # Steps wholly past the cut pass through; straddling 2-char
+            # steps consume their first char only.
+            cut = int(stop_at)
+            sched = sched.copy()
+            for p in range(P):
+                for t in range(Tf):
+                    ci, co = int(sched[8, t, p]), int(sched[0, t, p])
+                    if co == 0 or ci + co <= cut:
+                        continue
+                    if ci >= cut:
+                        sched[0, t, p] = 0
+                        sched[8, t, p] = T
+                    else:
+                        sched[0, t, p] = 1
+                        sched[3, t, p] = sched[2, t, p]  # posB = posA
+                        sched[5, t, p] = sched[4, t, p]  # u_end = u_mid
+                        sched[7, t, p] = sched[6, t, p]  # l_end = l_mid
+            keep = [t for t in range(Tf) if (sched[0, t] > 0).any()]
+            Tf = (max(keep) + 1) if keep else 0
+            sched = sched[:, :Tf]
+        charidx, consume = sched[8], sched[0]
+        # a fused step's pool is the widest over its consumed char span: the
+        # entering pool holds the previous step's end-char survivors
+        self.pools = [
+            max(int(pools[min(int(c), T - 1) : min(int(c) + max(1, int(k)), T)].max())
+                if int(c) < T else int(pools[T - 1])
+                for c, k in zip(charidx[t], consume[t]))
+            for t in range(Tf)
+        ]
+        # exact (two-row) steps: any plan char in the exact prefix; an exact
+        # tier runs every step exact
+        ex_lim = T if tier.exact else min(exact_steps, T)
+        self.exact = [bool((charidx[t] < ex_lim).any()) for t in range(Tf)]
+        self.kind = [(bool((consume[t] == 1).any()), bool((consume[t] == 0).any()))
+                     for t in range(Tf)]
+        self.Tf = Tf
+
+        def tab(k, dtype):
+            return torch.as_tensor(sched[k], dtype=dtype, device=dev)
+
+        self.consume, self.right = tab(0, torch.uint8), tab(1, torch.uint8)
+        self.posA, self.posB = tab(2, torch.int64), tab(3, torch.int64)
+        self.u_mid, self.u_end = tab(4, torch.int32), tab(5, torch.int32)
+        self.l_mid, self.l_end = tab(6, torch.int32), tab(7, torch.int32)
+
+
+def _search_infix_dimer(index: DeviceIndex, sched: _InfixSchedule,
+                        dsched: _DimerSchedule, needles, B: int, n_total: int):
+    """The pooled infix scan of `_search_infix` on the dimer rank rows: the
+    same seeded prefix and plan-id-carrying pool, then `dsched`'s fused
+    steps (two chars per row read where a plan's run allows, 1-char and
+    passthrough slots where it does not), the first ones exact while any
+    plan is in the exact prefix.  Returns ((st, valid), ovf_cap, ovf_far)
+    as `_search_infix` does; `far` also marks flagged sub-blocks."""
+    dev = needles.device
+    st, valid = initial_states(index, sched, needles, dsched.t_seed, dsched.F0,
+                               n_total)
+    ovf_cap = torch.zeros(B, dtype=torch.bool, device=dev)
+    ovf_far = torch.zeros(B, dtype=torch.bool, device=dev)
+    Fcur = dsched.F0
+    for t in range(dsched.Tf):
+        F = dsched.pools[t]
+        if F != Fcur:
+            st, valid, of = _resize(st, valid, F)
+            if of is not None:
+                ovf_cap |= of
+            Fcur = F
+        out, valid2, far = kernels.dimer_step(
+            index, st.view(5, B * F), valid.view(B * F), per_block=F, inner=F,
+            consume=dsched.consume[t], right=dsched.right[t],
+            u_mid=dsched.u_mid[t], u_end=dsched.u_end[t],
+            l_mid=dsched.l_mid[t], l_end=dsched.l_end[t],
+            nchA=needles.index_select(1, dsched.posA[t]),
+            nchB=needles.index_select(1, dsched.posB[t]),
+            exact=dsched.exact[t], with_mono=dsched.kind[t][0],
+            with_pass=dsched.kind[t][1],
+        )
+        st, valid, of = _compact(out.view(5, B, -1), valid2.view(B, -1), F)
+        ovf_cap |= of
+        ovf_far |= far.view(B, F).bool().any(dim=-1)
+    return (st, valid), ovf_cap, ovf_far
+
+
 def _balanced_schedule(n_right, n_left, pos_right, pos_left):
     """[T, M] (pos, right, act) arrays: slot m does its n_right[m] right
     steps then its n_left[m] left steps, all slots in lockstep."""
@@ -341,6 +490,34 @@ def _balanced_schedule(n_right, n_left, pos_right, pos_left):
             pos[nr + t, m] = pos_left[m][t]
             act[nr + t, m] = True
     return pos, right, act
+
+
+def _balanced_schedule_fused(n_right, n_left, pos_right, pos_left):
+    """Fused analog of `_balanced_schedule`: [4, T, M] (consume, right,
+    posA, posB).  Each slot's right run then left run, chars fused pairwise
+    within a run; odd runs end with one single-char step.  Slots pad with
+    consume=0 (passthrough)."""
+    M = len(n_right)
+    per_slot = []
+    for m in range(M):
+        steps = []
+        for is_right, run, posl in ((True, int(n_right[m]), pos_right[m]),
+                                    (False, int(n_left[m]), pos_left[m])):
+            i = 0
+            while i < run:
+                if i + 1 < run:
+                    steps.append((2, is_right, posl[i], posl[i + 1]))
+                    i += 2
+                else:
+                    steps.append((1, is_right, posl[i], posl[i]))
+                    i += 1
+        per_slot.append(steps)
+    T = max((len(s) for s in per_slot), default=0)
+    out = np.zeros((4, T, M), np.int32)
+    for m, steps in enumerate(per_slot):
+        for t, s in enumerate(steps):
+            out[:, t, m] = (s[0], int(s[1]), s[2], s[3])
+    return out
 
 
 def _tree_levels(J: int, K: int) -> list:
@@ -390,20 +567,32 @@ def _tree_levels(J: int, K: int) -> list:
 
 
 class _ExtensionLevel:
-    """Device-side tables of one doubling-tree level."""
+    """Device-side tables of one doubling-tree level: the mono schedule, or
+    with `dimer` the fused one (consume, right, posA, posB per step and
+    node, and each step's kind)."""
 
-    def __init__(self, level, errors, dev):
+    def __init__(self, level, errors, dev, dimer: bool = False):
         pmap, n_right, n_left, pos_right, pos_left = level
-        pos, right, act = _balanced_schedule(n_right, n_left, pos_right, pos_left)
         M = len(pmap)
         self.M = M
-        self.T = len(pos)
         self.pmap = torch.as_tensor(pmap, dtype=torch.int64, device=dev)
+        self.u = torch.full((M,), errors, dtype=torch.int32, device=dev)
+        self.lreq = torch.zeros(M, dtype=torch.int32, device=dev)
+        if dimer:
+            f = _balanced_schedule_fused(n_right, n_left, pos_right, pos_left)
+            self.T = f.shape[1]
+            self.consume = torch.as_tensor(f[0], dtype=torch.uint8, device=dev)
+            self.right = torch.as_tensor(f[1], dtype=torch.uint8, device=dev)
+            self.posA = torch.as_tensor(f[2], dtype=torch.int64, device=dev)
+            self.posB = torch.as_tensor(f[3], dtype=torch.int64, device=dev)
+            self.kind = [(bool((f[0, t] == 1).any()), bool((f[0, t] == 0).any()))
+                         for t in range(self.T)]
+            return
+        pos, right, act = _balanced_schedule(n_right, n_left, pos_right, pos_left)
+        self.T = len(pos)
         self.pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
         self.right = torch.as_tensor(right, dtype=torch.uint8, device=dev)
         self.act = torch.as_tensor(act, dtype=torch.uint8, device=dev)
-        self.u = torch.full((M,), errors, dtype=torch.int32, device=dev)
-        self.lreq = torch.zeros(M, dtype=torch.int32, device=dev)
 
 
 def _ext_phase(index, st, valid, ovf_cap, ovf_far, needles, lv: _ExtensionLevel,
@@ -431,10 +620,35 @@ def _ext_phase(index, st, valid, ovf_cap, ovf_far, needles, lv: _ExtensionLevel,
     return st, valid, ovf_cap, ovf_far
 
 
+def _ext_phase_fused(index, st, valid, ovf_cap, ovf_far, needles,
+                     lv: _ExtensionLevel, exact):
+    """`_ext_phase` on the dimer rows: slots consume 2 chars per step within
+    a run, 1 at its odd end, 0 once done (passthrough).  The extension's
+    error bound is one cumulative cap, so the mid-pair check is implied."""
+    R, B, M, Fe = st.shape
+    for t in range(lv.T):
+        out, valid2, far = kernels.dimer_step(
+            index, st.view(R, -1), valid.view(-1), per_block=M * Fe, inner=Fe,
+            consume=lv.consume[t], right=lv.right[t], u_mid=lv.u, u_end=lv.u,
+            l_mid=lv.lreq, l_end=lv.lreq,
+            nchA=needles.index_select(1, lv.posA[t]),
+            nchB=needles.index_select(1, lv.posB[t]), exact=exact,
+            with_mono=lv.kind[t][0], with_pass=lv.kind[t][1],
+        )
+        st, valid, of = _compact(out.view(R, B * M, -1), valid2.view(B * M, -1), Fe)
+        st = st.view(R, B, M, Fe)
+        valid = valid.view(B, M, Fe)
+        ovf_cap = ovf_cap | of.view(B, M).any(dim=-1)
+        ovf_far = ovf_far | far.view(B, M * Fe).bool().any(dim=-1)
+    return st, valid, ovf_cap, ovf_far
+
+
 def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
     """Extend infix survivors to every k-mer window of each block along the
     doubling tree (`_tree_levels`): ~2·log2(J) extension steps per k-mer,
-    left- and right-moving slots sharing each step.
+    left- and right-moving slots sharing each step.  A dimer tier runs the
+    fused steps on the dimer rows (`ext_exact` still picks the rank mode: a
+    forced exact dimer tier computes wide intervals instead of flagging).
 
     Returns ((st [4, B, J, Fe], valid [B, J, Fe]), ovf_cap, ovf_far)."""
     Fe = tier.f_extend
@@ -449,7 +663,8 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
         st = st.index_select(2, lv.pmap)
         valid = valid.index_select(1, lv.pmap)
         if lv.T:
-            st, valid, ovf_cap, ovf_far = _ext_phase(
+            phase = _ext_phase_fused if tier.dimer else _ext_phase
+            st, valid, ovf_cap, ovf_far = phase(
                 index, st, valid, ovf_cap, ovf_far, needles, lv, exact
             )
     return (st, valid), ovf_cap, ovf_far
@@ -475,7 +690,8 @@ class BlockMapper:
     bool, overflow_cap [B] bool) as device tensors.  The index holds both
     strands, so one pass yields the combined forward + reverse-complement
     frequency; rev_compl=False subtracts the reverse-strand occurrences
-    through the strand rank rows.
+    through the strand rank rows.  A dimer tier needs an index part with
+    dimer rows.
 
     `with_exact` (the dedup key pre-pass) or `with_states` (CSV) add
     exact_size, exact_size_total and exact_flo ([B, J] int32 holding
@@ -484,8 +700,11 @@ class BlockMapper:
 
     `probe=True` runs the infix scan only, truncated at `probe_cut` steps,
     and returns dict(skip [B] uint8): a skipped block's k-mers all have
-    frequency 1.  `probe_mass=True` (tests) adds mass_p [B, P] int32,
-    nwin [B] uint8 and overflow [B] uint8."""
+    frequency 1.  On a multi-part index the call of each part but the last
+    passes last=False and returns dict(acc=...), the running per-plan mass
+    sum that the next part's call takes as `acc` (kernels.probe_mass).
+    `probe_mass=True` (tests) adds mass_p [B, P] int32, nwin [B] uint8 and
+    overflow [B] uint8."""
 
     def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
                  errors: int, overlap: int, J: int, B: int, tier: Tier,
@@ -498,6 +717,8 @@ class BlockMapper:
             raise ValueError(
                 f"cap must be in [1, 65535] (uint16 result path), got {cap}"
             )
+        if tier.dimer and not index.has_dimer:
+            raise ValueError("dimer tier on an index part without dimer rows")
         dev = index.device
         self.index, self.dtext = index, dtext
         self.K, self.errors, self.J, self.B = K, errors, J, B
@@ -508,28 +729,46 @@ class BlockMapper:
         plans = plans_for(errors, overlap)
         infix_off = K - overlap
         self.n_total = index.n_total
-        self.exact_steps = exact_prefix_steps(self.n_total, 64)
+        # the dimer rows' fast window is 256 symbols: intervals must shrink
+        # to ~16 before the fast steps start
+        self.exact_steps = exact_prefix_steps(self.n_total, 16 if tier.dimer else 64)
         self.pools = infix_pool_schedule(plans, infix_off, self.n_total,
                                          tier.f_search / 4.0)
         self.sched = _InfixSchedule(plans, infix_off, dev)
-        self.levels = [_ExtensionLevel(lv, errors, dev) for lv in _tree_levels(J, K)]
+        self.dsched = None
+        if tier.dimer:
+            self.dsched = _DimerSchedule(
+                plans, infix_off, seed_steps(index, self.sched, self.sched.T),
+                self.pools, tier, self.exact_steps,
+                probe_cut if probe else None, dev,
+            )
+        self.levels = [_ExtensionLevel(lv, errors, dev, tier.dimer)
+                       for lv in _tree_levels(J, K)]
         self.thr = torch.as_tensor(
             probe_thresholds(plans, infix_off, probe_cut).astype(np.int32),
             device=dev,
         )
 
-    def __call__(self, starts, cnt, limit):
+    def __call__(self, starts, cnt, limit, acc=None, last: bool = True):
         B = starts.shape[0]
         needles = extract_needles(self.dtext, starts, self.Ln, limit)
-        (s_st, s_valid), cap1, far1 = _search_infix(
-            self.index, self.sched, needles, B, self.tier, self.n_total,
-            self.exact_steps, self.pools,
-            stop_at=self.probe_cut if self.probe else None,
-        )
+        if self.tier.dimer:
+            (s_st, s_valid), cap1, far1 = _search_infix_dimer(
+                self.index, self.sched, self.dsched, needles, B, self.n_total,
+            )
+        else:
+            (s_st, s_valid), cap1, far1 = _search_infix(
+                self.index, self.sched, needles, B, self.tier, self.n_total,
+                self.exact_steps, self.pools,
+                stop_at=self.probe_cut if self.probe else None,
+            )
         if self.probe:
             ovf = (cap1 | far1).to(torch.uint8)
             res = kernels.probe_mass(s_st, s_valid, ovf, needles, self.thr,
-                                     self.index.has_n, self.probe_mass)
+                                     self.index.has_n, self.probe_mass,
+                                     acc=acc, last=last)
+            if not last:
+                return dict(acc=res)
             if not self.probe_mass:
                 return dict(skip=res)
             skip, mass_p, nwin = res

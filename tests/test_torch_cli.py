@@ -150,18 +150,43 @@ def test_exclude_pseudo_outputs_are_byte_equal(dir_indexes, flags):
         assert b"\t3" in t["c.genmap.txt"] or b" 3" in t["c.genmap.txt"]
 
 
-def test_multipart_index_fails_loudly(tmp_path, capsys):
-    from genmap_tpu_torch.index.build import build_index
-    from genmap_tpu_torch.io.fasta import FastaFile
+@pytest.fixture(scope="module")
+def multipart_indexes(indexes, dir_indexes):
+    """The genome and the FASTA directory above, indexed again by both CLIs
+    with the part size capped (-xm): 2 and 3 parts."""
+    out = {}
+    for name, (root, _j, _t), src, xm in (("genome", indexes, ["-F", "genome.fa"], "2950"),
+                                          ("dir", dir_indexes, ["-FD", "fasta"], "1400")):
+        src = [src[0], str(root / src[1])]
+        jidx, tidx = str(root / "jidx_mp"), str(root / "tidx_mp")
+        assert jax_main(["index", *src, "-I", jidx, "-S", "3", "-xm", xm]) == 0
+        assert torch_main(["index", *src, "-I", tidx, "-S", "3", "-xm", xm]) == 0
+        out[name] = (root, jidx, tidx)
+    return out
 
-    rng = np.random.default_rng(1)
-    ff = FastaFile(name="g.fa")
-    ff.ids = ["a", "b", "c"]
-    ff.seqs = [rng.integers(0, 4, 90, dtype=np.uint8) for _ in range(3)]
-    data = build_index([ff], sampling=3, max_part_symbols=200)
-    assert len(data.parts) >= 2
-    data.save(str(tmp_path / "idx"))
-    rc = torch_main(["map", "-I", str(tmp_path / "idx"), "-O", str(tmp_path) + "/",
-                     "-K", "10", "-t", "--device", "cpu"])
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+
+def test_multipart_index_directories_are_byte_equal(multipart_indexes):
+    for name, nparts in (("genome", 2), ("dir", 3)):
+        _root, jidx, tidx = multipart_indexes[name]
+        j, t = _tree(jidx), _tree(tidx)
+        assert sorted(j) == sorted(t)
+        assert sum(fn.endswith("_dimer.npy") for fn in t) == nparts, sorted(t)
+        for fn in j:
+            assert j[fn] == t[fn], fn
+
+
+_MP_FLAG_SETS = {
+    "freq_large": ("genome", ["-K", "20", "-E", "2", "-fl", "-r", "-t"]),
+    "csv": ("genome", ["-K", "20", "-E", "2", "-d", "-t"]),
+    "ep_csv": ("dir", ["-K", "24", "-E", "1", "-d", "-ep", "-fl", "-t"]),
+}
+
+
+@pytest.mark.parametrize("flags", sorted(_MP_FLAG_SETS))
+def test_multipart_map_outputs_are_byte_equal(multipart_indexes, flags):
+    which, argv = _MP_FLAG_SETS[flags]
+    root, jidx, tidx = multipart_indexes[which]
+    t = _map_both(root, jidx, tidx, f"mp_{flags}", argv)
+    if "-d" in argv:  # locations in more than one part
+        csv = b"".join(v for k, v in t.items() if k.endswith(".csv")).decode()
+        assert csv.count("\n") > 100 and ("|" in csv or "-ep" in argv)

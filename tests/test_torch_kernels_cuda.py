@@ -249,3 +249,112 @@ def test_engine_cuda_equals_cpu(cuda, alpha):
     for key, ((f1, f2), (r1, r2)) in g.locations.items():
         for a, b in zip((f1, f2, r1, r2), (x for pair in c.locations[key] for x in pair)):
             np.testing.assert_array_equal(a, b)
+
+
+def _dimer_inputs(rng, n, R, exact, with_mono, with_pass):
+    """dimer_step inputs: intervals anywhere, at the 128-symbol sub-row
+    edges and around the fast window (0, 1 or 2 sub-rows past the start),
+    and wide ones; every consume kind the variant allows; needles with N."""
+    G, nblk, N = 4, 16, 2048
+    lo = np.concatenate([rng.integers(0, n + 1, N // 2),
+                         128 * rng.integers(0, n // 128, N // 2)
+                         + rng.choice([0, 1, 15, 16, 126, 127], N // 2)])
+    lo = np.minimum(lo, n)
+    kind = rng.integers(0, 4, N)
+    edge = 128 * rng.integers(0, 3, N) + rng.integers(-2, 3, N)
+    size = np.select([kind == 0, kind == 1, kind == 2],
+                     [rng.integers(0, 20, N), np.maximum(0, 128 - lo % 128 + edge),
+                      rng.integers(0, 600, N)], rng.integers(0, n + 1, N))
+    size = np.minimum(size, n - lo)
+    other = (rng.random(N) * (n - size + 1)).astype(np.int64)
+    side = rng.integers(0, 2, N).astype(bool)
+    st = np.stack([np.where(side, lo, other), np.where(side, other, lo), size,
+                   rng.integers(0, 3, N), rng.integers(0, G, N)])[:R]
+    allowed = [2] + ([1] if with_mono else []) + ([0] if with_pass else [])
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dt))
+
+    u_mid = rng.integers(0, 3, G)
+    l_mid = rng.integers(0, 2, G)
+    kw = dict(per_block=N // nblk, inner=N // nblk // G,
+              consume=t([allowed[g % len(allowed)] for g in range(G)], np.uint8),
+              right=t([0, 1, 1, 0], np.uint8), u_mid=t(u_mid, np.int32),
+              u_end=t(u_mid + rng.integers(0, 2, G), np.int32), l_mid=t(l_mid, np.int32),
+              l_end=t(l_mid + rng.integers(0, 2, G), np.int32),
+              nchA=t(rng.integers(0, 5, (nblk, G)), np.uint8),
+              nchB=t(rng.integers(0, 5, (nblk, G)), np.uint8),
+              exact=exact, with_mono=with_mono, with_pass=with_pass)
+    return (t(st.astype(np.uint32).view(np.int32), np.int32),
+            t(rng.random(N) < 0.9, np.uint8), kw)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("with_mono", [True, False])
+@pytest.mark.parametrize("with_pass", [True, False])
+def test_dimer_step(cuda, alpha, exact, with_mono, with_pass):
+    data, gi, ci = _indexes(alpha, cuda)
+    assert gi.has_dimer and data.parts[0].dimer_flag_frac > 0  # flagged rows exist
+    rng = np.random.default_rng(20 + alpha + 2 * exact + 4 * with_mono + 8 * with_pass)
+    for R in (5, 4):
+        st, valid, kw = _dimer_inputs(rng, gi.n_total, R, exact, with_mono, with_pass)
+        ref = kernels.dimer_step(ci, st, valid, **kw)
+        got = kernels.dimer_step(gi, st.to(cuda), valid.to(cuda),
+                                 **{k: v.to(cuda) if torch.is_tensor(v) else v
+                                    for k, v in kw.items()})
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        assert ref[1].any() and ref[2].any()  # valid candidates and far states
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_probe_mass_accumulates_over_parts(cuda, alpha):
+    """Three parts' launches: two adding into the running sum, the third
+    deciding (and reporting the summed mass)."""
+    rng = np.random.default_rng(31 + alpha)
+    B, F, P, Ln = 300, 12, 3, 90
+    needles = rng.integers(0, 4, (B, Ln))
+    needles[rng.random((B, Ln)) < 0.002] = 4
+    needles = torch.from_numpy(needles.astype(np.uint8))
+    thr = torch.from_numpy(rng.integers(0, 2, P).astype(np.int32))
+    acc = {"cpu": None, "cuda": None}
+    for last in (False, False, True):
+        st = np.zeros((5, B, F), np.int64)
+        st[2] = rng.integers(1, 3, (B, F))
+        big = rng.random((B, F)) < 0.02
+        st[2][big] = rng.integers(2**31, 2**32, int(big.sum()))
+        st[4] = rng.integers(0, P, (B, F))
+        valid = rng.random((B, F)) < rng.random((B, 1)) * 0.2
+        args = [torch.from_numpy(st.astype(np.uint32).view(np.int32)),
+                torch.from_numpy(valid.astype(np.uint8)),
+                torch.from_numpy((rng.random(B) < 0.05).astype(np.uint8)), needles, thr]
+        ref = kernels.probe_mass(*args, alpha == 5, last, acc=acc["cpu"], last=last)
+        got = kernels.probe_mass(*(a.to(cuda) for a in args), alpha == 5, last,
+                                 acc=acc["cuda"], last=last)
+        torch.cuda.synchronize()
+        for a, b in zip(got if last else (got,), ref if last else (ref,)):
+            _eq(a, b)
+        acc = {"cpu": ref, "cuda": got}
+    assert ref[0].any() and not ref[0].all()
+
+
+def test_engine_multipart_dimer_cuda_equals_cpu(cuda):
+    """A three-part index, every tier twinned onto the dimer rows."""
+    seq = _genome(4, n=9000, seed=3)[0]
+    ff = FastaFile(name="g.fa")
+    ff.seqs = [seq[:5000], seq[5000:10_000], seq[10_000:15_000]]
+    ff.ids = ["a", "b", "c"]
+    data = build_index([ff], sampling=4, max_part_symbols=12_000)
+    assert len(data.parts) == 3
+    ge = MappabilityEngine(data, batch_blocks=64, device=cuda, dimer_tier=True)
+    ce = MappabilityEngine(data, batch_blocks=64, device="cpu", dimer_tier=True)
+    for K, e, o in ((20, 1, 12), (30, 2, 20)):
+        params = SearchParams(length=K, overlap=o)
+        kernels.reset_launches()
+        g = ge.compute_file(ge.layouts[0], params, e, 255)
+        assert kernels.launch_counts()["dimer_step"] > 0
+        c = ce.compute_file(ce.layouts[0], params, e, 255)
+        np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e}")
+        assert ge.stats["dimer_tier"] and ge.stats["tier_blocks"] == ce.stats["tier_blocks"]
