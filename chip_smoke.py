@@ -22,24 +22,31 @@ or of the JAX package.  Phases (any failure exits non-zero):
   3. main    `genmap-tpu-torch index` of a 12.07 Mbp genome-like genome laid
              out as S. cerevisiae's 16 nuclear chromosomes (Dna4), then
              `genmap-tpu-torch map -K 100 -E 2` of the whole genome on the
-             card (the unique-infix probe on and dimer twins before the wide
-             exact tiers, as by default), four times:
+             card (the unique-infix probe on, dimer twins before the wide
+             exact tiers, occupancy calibration of each tier's cohort and,
+             as J = 50 >= 16, the split pipeline, as by default), four times:
              - a checked run: every kernel call of the seed-table build and
-               of the first batch of each program (the probe and each tier,
-               twins included) is held against its plain version (exactly),
-               and that batch is profiled
+               of the first batch of each program (the probe, each tier's
+               calibration batch, the first phase-A batch of each tier and
+               the first phase-B batch of each (rung, mode)) is held against
+               its plain version (exactly), and that batch is profiled; the
+               calibrated pools, extension schedules and phase-B batches and
+               blocks per (tier, rung, mode) are logged
              - three timed runs: launch counters set to 0 just before and
                read just after each; every kernel of the path must have
                launched; the k-mers/s figure is their median
              then `map -K 24 -E 1` of the whole genome, whose tier 0 runs on
-             the dimer rows: checked, then counted (dimer_step must launch)
+             the dimer rows (fused, J = 6): checked, then counted
+             (dimer_step must launch)
   4. check   `map -d` on the CPU (plain PyTorch path) and on the card for a
              BED selection of >= 20,000 k-mers spread over the genome, half
              of them in repeat-rich windows (below the probe's gate, so the
              CPU recomputes them without it): the CPU's frequencies must
              equal the main path's, and both runs' output files (frequencies
              and CSV) must be byte-equal; every kernel call of the card's
-             run is held against its plain version
+             run is held against its plain version.  Then the same selection
+             without -d (the split pipeline) on the CPU and the card: files
+             byte-equal, frequencies equal to the main path's
   5. csv     `map -d` of all of chrI on the card (counters reset before and
              read after; locate must launch): its frequencies must equal
              the main path's on chrI; located rows/s is logged
@@ -66,8 +73,8 @@ or of the JAX package.  Phases (any failure exits non-zero):
              dimer_step variant) is timed on the card (kernel, plain
              version, library call where one exists) beside its bound
 
-Output: a line per kernel, `{"kernels": [...]}`, the card's name and power
-limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
+Output: a line per kernel (nine), `{"kernels": [...]}`, the card's name and
+power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -100,10 +107,10 @@ DNA5_BP = 1_000_000  # Dna5 index of phase 2
 B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
 TIMED_RUNS = 3
 NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
-         "probe_mass", "locate", "dimer_step")
+         "probe_mass", "locate", "dimer_step", "seed_lookup", "gather_states")
 # the kernels of the whole-genome map (no CSV)
 MAIN_NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
-              "probe_mass", "dimer_step")
+              "probe_mass", "dimer_step", "seed_lookup", "gather_states")
 EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
 DEDUP_CHROMS = 7  # chrI-chrVII
 MP_CHROMS = 7  # chrI-chrVII, the multi-part phase's genome
@@ -291,6 +298,8 @@ def timing_keys(name, args) -> list:
     dimer_step variant."""
     if name == "count_tail" and args.get("with_exact"):
         return ["count_tail+exact"]
+    if name == "compact" and args.get("count"):
+        return [name, "compact+count"]
     if name == "dimer_step":  # A, rank mode, mono steps, passthrough slots
         return [name, f"{name}+A={args['index'].nchars},"
                       f"{'exact' if args['exact'] else 'fast'},"
@@ -305,7 +314,12 @@ def variant(name, args) -> str:
         return (f"A={args['index'].nchars} R={args['st'].shape[0]} "
                 f"{'exact' if args['exact'] else 'fast'}")
     if name == "compact":
-        return f"M={args['arrays'].shape[2]} F={args['F']}"
+        return f"M={args['arrays'].shape[2]} F={args['F']} count={bool(args.get('count'))}"
+    if name == "seed_lookup":
+        return (f"P={args['a_pos'].numel()} t_seed={args['t_seed']} Fp={args['Fp']} "
+                f"A={args['index'].nchars}")
+    if name == "gather_states":
+        return f"Fc={args['st'].shape[2]} Fe={args['Fe']}"
     if name == "probe_mass":
         return (f"F={args['st'].shape[2]} P={args['thr'].numel()} "
                 f"N-window={args['has_n']} mass={bool(args.get('with_mass'))} "
@@ -374,9 +388,27 @@ def kernel_work(name, args):
         R, nrows, M = args["arrays"].shape
         F = args["F"]
         kept = int(args["valid"].bool().sum(dim=-1).clamp(max=F).sum())
-        nbytes = nrows * M + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
+        nbytes = (nrows * M + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
+                  + (4 * nrows if args.get("count") else 0))
         nops = 6 * nrows * M  # ballot, rank popcount, compare per slot
-        return nbytes, nops, f"R={R} rows={nrows} M={M} F={F}", 0
+        return nbytes, nops, (f"R={R} rows={nrows} M={M} F={F}"
+                              f"{' count' if args.get('count') else ''}"), 0
+    if name == "seed_lookup":
+        # per (block, plan): t_seed needle bytes, three 4-byte table reads;
+        # the [5, B, Fp] states and [B, Fp] validity written
+        Bn = args["needles"].shape[0]
+        P, t, Fp = args["a_pos"].numel(), args["t_seed"], args["Fp"]
+        nbytes = Bn * P * (t + (12 if t else 0)) + 4 * P + Bn * Fp * (5 * 4 + 1)
+        nops = Bn * P * (8 * t + 10) + 8 * Bn * Fp
+        return nbytes, nops, f"B={Bn} P={P} t_seed={t} Fp={Fp}", 0
+    if name == "gather_states":
+        # min(Fc, Fe) slots of four operands and validity read per row, Fe
+        # written; the row ids read once
+        _R, _Bc, Fc = args["st"].shape
+        npad, Fe = args["ridx"].numel(), args["Fe"]
+        nbytes = npad * 4 + npad * min(Fc, Fe) * 17 + npad * Fe * 17
+        nops = 4 * npad * Fe
+        return nbytes, nops, f"npad={npad} (n={args['n']}) Fc={Fc} Fe={Fe}", 0
     if name == "probe_mass":
         st, valid = args["st"], args["valid"]
         _R, Bp, F = st.shape
@@ -505,6 +537,9 @@ def library_fn(name, args):
         size = torch.where(args["valid"].bool(), st[2].to(torch.int64) & 0xFFFFFFFF, 0)
         zeros = torch.zeros((st.shape[1], P), dtype=torch.int64, device=st.device)
         return lambda: torch.scatter_add(zeros, 1, plan, size)
+    if name == "gather_states":  # the row gather only (no cut, pad or mask)
+        st, ridx = args["st"], args["ridx"].to(torch.int64)
+        return lambda: torch.index_select(st, 1, ridx)
     if name != "compact":
         return None
     arrays, valid, F = args["arrays"], args["valid"], args["F"]
@@ -571,8 +606,9 @@ def time_kernels(checker, launches):
 
 def time_seed_tables(idx):
     """K2 on the main path's index: the seed-table build (its candidate
-    steps are the candidate_step kernel) and the per-batch lookup glue
-    (`initial_states`), device times beside the build's byte bound."""
+    steps are the candidate_step kernel) beside its byte bound, and the
+    per-batch lookup (`initial_states`: one seed_lookup launch) at two batch
+    sizes."""
     import torch
 
     from genmap_tpu_torch.cli.map_cmd import default_overlap
@@ -593,6 +629,7 @@ def time_seed_tables(idx):
     J = K - o + 1
     sched = se._InfixSchedule(plans_for(E, o), K - o, index.device)
     t_seed = se.seed_steps(index, sched, sched.T)
+    Fp = int(se.infix_pool_schedule(plans_for(E, o), K - o, index.n_total, 1.0)[t_seed])
     rng = np.random.default_rng(SEED + 5)
     for B in (1024, 8192):
         starts = rng.integers(0, data.text_len - K - J, B).astype(np.uint32)
@@ -600,15 +637,16 @@ def time_seed_tables(idx):
             text, torch.from_numpy(starts.view(np.int32)).to(index.device), K + J - 1,
             data.text_len)
         torch.cuda.synchronize()
-        lookup_ms = device_ms(lambda: se.initial_states(index, sched, needles, t_seed, 4,
+        lookup_ms = device_ms(lambda: se.initial_states(index, sched, needles, t_seed, Fp,
                                                         index.n_total))
         t = time.perf_counter()
         for _ in range(10):
-            se.initial_states(index, sched, needles, t_seed, 4, index.n_total)
+            se.initial_states(index, sched, needles, t_seed, Fp, index.n_total)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 100
-        log(f"kernel seed tables (K2): lookup of t0={t_seed} levels for B={B} blocks "
-            f"x P={sched.P} plans: {lookup_ms:.4f} ms device, {host_ms:.4f} ms wall per batch")
+        log(f"kernel seed tables (K2): lookup (seed_lookup) of t0={t_seed} levels for "
+            f"B={B} blocks x P={sched.P} plans into Fp={Fp} slots: {lookup_ms:.4f} ms "
+            f"device, {host_ms:.4f} ms wall per batch")
     log(f"kernel seed tables (K2): build of t0={index.seed_t0} levels on the "
         f"{index.n_total}-symbol index: {build_ms:.3f} ms device (bound {bound_ms:.5f} ms "
         f"by bytes: {out_bytes} B of tables written, {row_bytes} B of rank sub-rows read)")
@@ -703,17 +741,43 @@ def selection(chroms, gpu_freq, want=24_000, win=500):
 
 class first_batches_checked:
     """While active, the first batch of every batch program an engine runs
-    (the probe, each tier, the dedup pre-pass) is profiled (with `profile`)
-    and then run with every kernel call held against its plain version."""
+    (the probe, each tier's calibration batch, each tier's fused program or
+    phase-A collector, the dedup pre-pass) and of every phase-B extender
+    (each rung and mode) is profiled (with `profile`) and then run with
+    every kernel call held against its plain version."""
 
     def __init__(self, checker, where: str, profile: bool = False):
         self.checker, self.where, self.profile = checker, where, profile
         self.seen = set()
 
+    def _first(self, label, call):
+        """Profile (optionally) and then check one first batch."""
+        checker = self.checker
+        checker.on = False
+        if self.profile:
+            import torch
+
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"memory: {label}: peak allocated {peak} B ({peak - base} B above "
+                f"what was allocated before the batch)")
+            profile_batch(call, label)
+        checker.on, checker.keep, checker.phase = True, True, label
+        try:
+            return call()
+        finally:
+            checker.on = checker.keep = False
+
     def __enter__(self):
         from genmap_tpu_torch.engine.mappability import MappabilityEngine
+        from genmap_tpu_torch.search.engine import Extender
 
         self.orig = orig = MappabilityEngine._run_batch
+        self.orig_ext = orig_ext = Extender.__call__
         checker, seen = self.checker, self.seen
 
         def run_batch(eng, runs, layout, bstarts, bcnts, B):
@@ -724,38 +788,39 @@ class first_batches_checked:
             seen.add(key)
             run = runs[0]
             t = run.tier
-            label = (f"{self.where}: first batch of "
-                     f"{'the probe' if run.probe else 'tier'}(f_search={t.f_search}, "
+            kind = ("the probe at " if run.probe else "the calibration batch at " if
+                    run.with_occ else "phase A at " if run.collect_only else "")
+            label = (f"{self.where}: first batch of {kind}"
+                     f"tier(f_search={t.f_search}, "
                      f"f_extend={t.f_extend}, exact={t.exact}, dimer={t.dimer}, "
                      f"ext_exact={t.ext_exact}, K={run.K}, e={run.errors}"
                      f"{', with_exact' if run.with_exact else ''}) B={B} "
                      f"({len(bstarts)} blocks, {len(runs)} index part(s))")
-            checker.on = False
-            if self.profile:
-                import torch
+            return self._first(label, lambda: orig(eng, runs, layout, bstarts, bcnts, B))
 
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                orig(eng, runs, layout, bstarts, bcnts, B)
-                torch.cuda.synchronize()
-                peak = torch.cuda.max_memory_allocated()
-                log(f"memory: {label}: peak allocated {peak} B ({peak - base} B above "
-                    f"what was allocated before the batch)")
-                profile_batch(lambda: orig(eng, runs, layout, bstarts, bcnts, B), label)
-            checker.on, checker.keep, checker.phase = True, True, label
-            try:
-                return orig(eng, runs, layout, bstarts, bcnts, B)
-            finally:
-                checker.on = checker.keep = False
+        def extend(run, starts, cnt, limit, phase_a, ridx, n):
+            key = ("ext", run.Fe, run.tier.exact, run.tier.dimer)
+            if key in seen:
+                checker.on = False
+                return orig_ext(run, starts, cnt, limit, phase_a, ridx, n)
+            seen.add(key)
+            label = (f"{self.where}: first phase-B batch at rung Fe={run.Fe}, "
+                     f"{'exact' if run.tier.exact else 'fast'}-"
+                     f"{'dimer' if run.tier.dimer else 'mono'} (B={starts.shape[0]}, "
+                     f"{n} blocks, schedule {run.fe_sched}, with_occ={run.with_occ})")
+            return self._first(label, lambda: orig_ext(run, starts, cnt, limit, phase_a,
+                                                       ridx, n))
 
         MappabilityEngine._run_batch = run_batch
+        Extender.__call__ = extend
         return self
 
     def __exit__(self, *exc):
         from genmap_tpu_torch.engine.mappability import MappabilityEngine
+        from genmap_tpu_torch.search.engine import Extender
 
         MappabilityEngine._run_batch = self.orig
+        Extender.__call__ = self.orig_ext
         self.checker.on = self.checker.keep = False
 
 
@@ -781,8 +846,34 @@ def checked_map(idx, out, checker) -> None:
         f"probe skipped {st['probe_skipped']} blocks")
     log(f"main: dimer tier 0 {st['dimer_tier']}; ladder {ladder_str(st['tiers'])}; "
         f"blocks per tier {st['tier_blocks']}")
+    log_split(report, "main")
+    counted = [v for v in checker.variants["compact"] if "count=True" in v]
     if n["probe_mass"] == 0 or n["dimer_step"] == 0:
         raise AssertionError("the main path ran no probe batch or no dimer twin")
+    if not (n["seed_lookup"] and n["gather_states"] and counted):
+        raise AssertionError("no seed_lookup, gather_states or counting compact call "
+                             "was checked on the main path")
+    if not report["tuned_pools"] or not st["phase_a_batches"] or not st["rung_batches"]:
+        raise AssertionError("the main path ran no calibration or no split pipeline")
+
+
+def log_split(report, where):
+    """The calibrated pools, the extension schedules, and the split
+    pipeline's phase-A batches and phase-B batches / blocks per (tier, rung,
+    mode) of a map's report."""
+    st = report["stats"]
+    for key, (pools, fe) in report["tuned_pools"].items():
+        log(f"{where}: calibration (K, e, o, dimer, f_extend, tier) {key}: pools "
+            f"{pools}, f_extend {fe}")
+    log(f"{where}: extension schedules {report['ext_sched']}")
+    mode = {(False, False): "fast-mono", (False, True): "fast-dimer",
+            (True, True): "exact-dimer", (True, False): "exact-mono"}
+    rungs = "; ".join(
+        f"tier {t} Fe={fe} {mode[(ex, di)]}: {st['rung_batches'][k]} batches, "
+        f"{st['rung_blocks'][k]} blocks"
+        for k in sorted(st["rung_batches"]) for t, fe, ex, di in [k])
+    log(f"{where}: split pipeline: {st['phase_a_batches']} phase-A batches, "
+        f"{sum(st['rung_batches'].values())} phase-B batches ({rungs or 'none'})")
 
 
 def ladder_str(tiers) -> str:
@@ -875,6 +966,8 @@ def main_path(dev, work, checker):
             f"{report['compute_s']:.2f} s compute ({wall:.2f} s with index upload "
             f"and seed tables), {kps:.1f} k-mers/s; dispatch {st['dispatch_s']:.2f} s "
             f"fetch {st['fetch_s']:.2f} s scatter {st['scatter_s']:.2f} s; "
+            f"{st['batches']} batches ({st['phase_a_batches']} phase A, "
+            f"{sum(st['rung_batches'].values())} phase B); "
             f"peak allocated {torch.cuda.max_memory_allocated()} B")
     log(f"main: host load average after the timed runs {os.getloadavg()}")
     log(f"main: device bytes resident (index + text + seed tables) "
@@ -920,6 +1013,7 @@ def short_map(idx, work, checker):
     st = report["stats"]
     kps = report["n_kmers"] / report["compute_s"]
     freq = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+    log_split(report, "main (24,1)")
     log(f"main: map -K 24 -E 1: checked run ({len(fb.seen)} batch programs): kernel "
         f"calls equal to plain {n}; counted run {report['compute_s']:.2f} s compute, "
         f"{kps:.1f} k-mers/s, dimer tier 0 {st['dimer_tier']}, ladder "
@@ -959,37 +1053,56 @@ def check_phase(work, idx, chroms, gpu_freq, checker):
             checker.keep = True
 
     rank.with_seed_tables = seed_tables
-    for dev in ("cpu", "cuda"):
-        out = os.path.join(work, f"sel_{dev}")
-        os.makedirs(out)
-        t = time.perf_counter()
-        report = {}
-        checker.on, checker.keep, checker.phase = dev == "cuda", True, "the -d selection map"
-        try:
-            rc = map_main(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
-                           "-fl", "-r", "-d", "-S", bed, "--device", dev], report=report)
-        finally:
-            checker.on = checker.keep = False
-            if dev == "cuda":
-                rank.with_seed_tables = build
-        if rc != 0:
-            raise AssertionError(f"{dev} -d map exited {rc}")
-        trees[dev] = read_tree(out)
-        log(f"check: -d map of the selection on {dev} in {time.perf_counter() - t:.1f} s "
-            f"(tier blocks {report['stats']['tier_blocks']})")
-    cpu_freq = np.frombuffer(trees["cpu"]["yeastlike.genmap.freq16"], dtype="<u2")
+    try:
+        # with -d (fused per-tier programs), then without (the split pipeline:
+        # a BED selection skips dedup, J = 50, one index part)
+        for csv, dev in ((True, "cpu"), (True, "cuda"), (False, "cpu"), (False, "cuda")):
+            what = "-d map" if csv else "map without -d"
+            out = os.path.join(work, f"sel_{dev}_{int(csv)}")
+            os.makedirs(out)
+            t = time.perf_counter()
+            report = {}
+            checker.on, checker.keep = dev == "cuda", True
+            checker.phase = f"the selection's {what}"
+            try:
+                rc = map_main(["-I", idx, "-O", out + "/", "-K", str(K), "-E", str(E),
+                               "-fl", "-r", *(["-d"] if csv else []), "-S", bed,
+                               "--device", dev], report=report)
+            finally:
+                checker.on = checker.keep = False
+            if rc != 0:
+                raise AssertionError(f"{dev} {what} exited {rc}")
+            trees[(dev, csv)] = read_tree(out)
+            st = report["stats"]
+            log(f"check: {what} of the selection on {dev} in "
+                f"{time.perf_counter() - t:.1f} s (tier blocks {st['tier_blocks']}, "
+                f"{st['phase_a_batches']} phase-A and {sum(st['rung_batches'].values())} "
+                f"phase-B batches)")
+            if not csv and not st["phase_a_batches"]:
+                raise AssertionError("the selection without -d ran no split pipeline")
+    finally:
+        rank.with_seed_tables = build
     nsel = int(mask.sum())
-    bad = int((cpu_freq[mask] != gpu_freq[mask]).sum())
-    same = [fn for fn in trees["cpu"] if trees["cpu"][fn] == trees["cuda"].get(fn)]
-    log(f"check: {nsel} k-mers in {len(wins)} windows ({(gpu_freq[mask] > 1).sum()} "
-        f"with frequency > 1, max {gpu_freq[mask].max()}): {bad} mismatches against "
-        f"the main path; CPU and card files {sorted(trees['cpu'])}, byte-equal: {same} "
-        f"(csv {len(trees['cpu']['yeastlike.genmap.csv'])} B)")
-    if nsel < 20_000 or bad:
-        raise AssertionError(f"cross-check failed: {nsel} k-mers, {bad} mismatches")
-    if sorted(trees["cpu"]) != sorted(trees["cuda"]) or len(same) != len(trees["cpu"]):
-        raise AssertionError("CPU and card -d output files differ")
-    return dict(kmers=nsel, mismatches=bad)
+    res = dict(kmers=nsel)
+    for csv in (True, False):
+        cpu, card = trees[("cpu", csv)], trees[("cuda", csv)]
+        what = "-d" if csv else "no -d"
+        freqs = {d: np.frombuffer(trees[(d, csv)]["yeastlike.genmap.freq16"], dtype="<u2")
+                 for d in ("cpu", "cuda")}
+        bad = sum(int((f[mask] != gpu_freq[mask]).sum()) for f in freqs.values())
+        same = [fn for fn in cpu if cpu[fn] == card.get(fn)]
+        log(f"check ({what}): {nsel} k-mers in {len(wins)} windows "
+            f"({(gpu_freq[mask] > 1).sum()} with frequency > 1, max "
+            f"{gpu_freq[mask].max()}): {bad} mismatches of the CPU's and the card's "
+            f"against the main path; CPU and card files {sorted(cpu)}, byte-equal: "
+            f"{same}" + (f" (csv {len(cpu['yeastlike.genmap.csv'])} B)" if csv else ""))
+        if nsel < 20_000 or bad:
+            raise AssertionError(f"cross-check ({what}) failed: {nsel} k-mers, "
+                                 f"{bad} mismatches")
+        if sorted(cpu) != sorted(card) or len(same) != len(cpu):
+            raise AssertionError(f"CPU and card output files ({what}) differ")
+        res["mismatches" if csv else "mismatches_no_d"] = bad
+    return res
 
 
 def csv_phase(work, idx, chroms, gpu_freq):
@@ -1225,6 +1338,7 @@ def multipart_phase(work, checker):
                 f"B in all, with the text); dimer tier 0 {st['dimer_tier']}, "
                 f"ladder {ladder_str(st['tiers'])}, blocks per tier {st['tier_blocks']}, "
                 f"probe skipped {st['probe_skipped']}; launches {counts}; checked calls {n}")
+            log_split(report, f"multipart ({k},{e}) {name}")
         bad = int((freqs["whole"] != freqs["split"]).sum())
         log(f"multipart: ({k},{e}): {bad} frequency mismatches whole vs split")
         if bad or freqs["whole"].shape[0] != sum(len(c) for _, c in chroms):

@@ -45,8 +45,8 @@ def default_overlap(K: int, errors: int) -> int:
 
 def map_main(argv: list[str], report: dict | None = None) -> int:
     """Run `map`.  When `report` is given it receives the engine's stats,
-    the mapped k-mer count, the compute time and the device's resident and
-    peak bytes."""
+    the mapped k-mer count, the compute time, the device's resident bytes
+    and the engine's calibrated pools and extension schedules."""
     p = argparse.ArgumentParser(prog="genmap-tpu-torch map", add_help=True)
     p.add_argument("-I", "--index", required=True)
     p.add_argument("-O", "--output", required=True)
@@ -243,5 +243,6 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
             stats=dict(st), n_kmers=n_kmers, compute_s=compute_s,
             resident_bytes=engine.resident_bytes(), device=str(engine.device),
             part_bytes=[ix.resident_bytes() for ix in engine.indices],
+            tuned_pools=dict(engine._tuned_pools), ext_sched=dict(engine._ext_sched),
         )
     return 0

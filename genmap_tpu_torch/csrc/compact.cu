@@ -14,7 +14,10 @@
 // candidate its rank, and candidates ranked < F are written to their slot.
 // One kernel covers every regime of the JAX function (F = 1, small and
 // large frontiers).  Slots past the valid count are zeroed; the row's
-// overflow flag says whether more than F were valid.
+// overflow flag says whether more than F were valid.  On request the row's
+// valid count before the cut is written too (the JAX package's occupancy
+// signal, v.sum(-1) at genmap_tpu/search/engine.py:588/816/946, and the
+// split pipeline's survivor count, :1304-1306): the kernel has it anyway.
 
 #include "genmap.cuh"
 
@@ -23,7 +26,8 @@ __global__ void compact_kernel(const int32_t* __restrict__ in,
                                int64_t rows, int M, int F,
                                int32_t* __restrict__ out,
                                uint8_t* __restrict__ out_valid,
-                               uint8_t* __restrict__ ovf) {
+                               uint8_t* __restrict__ ovf,
+                               int32_t* __restrict__ cnt) {
   const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // warp-uniform: the whole warp leaves together
@@ -49,17 +53,21 @@ __global__ void compact_kernel(const int32_t* __restrict__ in,
     for (int r = 0; r < R; ++r) out[((int64_t)r * rows + row) * F + s] = 0;
     out_valid[row * F + s] = 0;
   }
-  if (lane == 0) ovf[row] = base > F ? 1 : 0;
+  if (lane == 0) {
+    ovf[row] = base > F ? 1 : 0;
+    if (cnt) cnt[row] = base;
+  }
 }
 
 extern "C" int genmap_compact(const void* in, const void* valid, int R,
                               long long rows, int M, int F, void* out,
-                              void* out_valid, void* ovf, void* stream) {
+                              void* out_valid, void* ovf, void* cnt,
+                              void* stream) {
   if (rows == 0) return 0;
   const int threads = 256;  // 8 rows per block
   const unsigned int blocks = (unsigned int)((rows * 32 + threads - 1) / threads);
   compact_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (const uint8_t*)valid, R, (int64_t)rows, M, F,
-      (int32_t*)out, (uint8_t*)out_valid, (uint8_t*)ovf);
+      (int32_t*)out, (uint8_t*)out_valid, (uint8_t*)ovf, (int32_t*)cnt);
   return (int)cudaGetLastError();
 }

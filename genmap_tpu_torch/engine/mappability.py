@@ -2,14 +2,19 @@
 
 Port of `genmap_tpu/engine/mappability.py` on one device, for single- and
 multi-part indexes: block decomposition of a file (or of a BED selection),
-the unique-infix probe, same-k-mer dedup, the batch loop over the block
-mapper (search/engine.py, one mapper per index part, counts summed over the
-parts), the dimer-table policy (tier 0 and twins of the wide tiers on the
-dimer rows), capacity-tier escalation routed by overflow kind, a rescue
-pass at the static largest tier, scatter into the frequency vector, the CSV
-location table, the exclude-pseudo reduction and resetLimits.  Occupancy
-calibration and the split pipeline are not part of this port yet; neither
-changes a result.
+the unique-infix probe, same-k-mer dedup, occupancy calibration of each
+tier's cohort (per index part), the batch loop over the block mapper
+(search/engine.py, one mapper per index part, counts summed over the
+parts) or, for single-part plain-counting maps with J >= 16, the split
+pipeline (phase-A infix collectors, phase-B extenders per survivor rung
+with the fast-dimer -> exact-dimer -> exact-mono mode ladder), the
+dimer-table policy (tier 0 and twins of the wide tiers on the dimer rows),
+capacity-tier escalation routed by overflow kind, a rescue pass at the
+static largest tier, scatter into the frequency vector, the CSV location
+table, the exclude-pseudo reduction and resetLimits.  Calibration and the
+split pipeline change speed only, never a result; their gates, constants
+and dispatch order are the JAX engine's, so the blocks per tier, the
+calibrated pools and the extension schedules equal its.
 
 Capability map to the reference (GenMap src/):
   - per-file segmentation loop            mappability.hpp:276-365
@@ -36,7 +41,9 @@ from genmap_tpu_torch.progress import Progress
 from genmap_tpu_torch.search.engine import (
     DEFAULT_TIERS,
     BlockMapper,
+    Extender,
     Tier,
+    _quant4,
     extension_extra_estimate,
     infix_pool_schedule,
 )
@@ -183,6 +190,18 @@ class MappabilityEngine:
         # chunk at once, so it takes smaller chunks)
         self._locate_chunk = (1 << 20) if self.device.type == "cuda" else (1 << 14)
         self._dup_rate_cache: dict = {}
+        # occupancy-calibrated pool schedules, {(K, e, o, dimer, f_extend,
+        # tier): (per-part pools or "static", f_extend or None)}, kept
+        # across compute calls; off for A-B comparisons and tests
+        self._calibrate_enabled = True
+        self._cal_batch = 2048  # calibration sample size (tests shrink it)
+        self._tuned_pools: dict = {}
+        # the split pipeline's measured per-level extension schedules,
+        # {(K, e, o, rung, exact, dimer): tuple | "flat" | "measuring"}
+        self._ext_sched: dict = {}
+        # record the routes and the split pipeline's blocks per (tier, rung,
+        # exact, dimer) in stats["routes"] / stats["rung_sel"] (tests)
+        self._record_tier_sel = False
         # per-compute overflow/tier statistics + phase timers (device time
         # lands in fetch_s: the result copy waits for the device)
         self.stats = {
@@ -191,6 +210,7 @@ class MappabilityEngine:
             "dimer_tier": False, "probe_skipped": 0,
             "tier_blocks": {},  # blocks PROCESSED per tier index
             "tiers": (),  # the ladder of the last compute, twins included
+            "phase_a_batches": 0, "rung_batches": {}, "rung_blocks": {},
         }
         # global sequence id -> file ordinal, for exclude-pseudo
         self.seq_file_id = np.zeros(data.nseq, dtype=np.int64)
@@ -217,21 +237,26 @@ class MappabilityEngine:
 
     def _runner(self, pi, K, errors, o, J, B, tier, cap, rev_compl,
                 with_states=False, with_exact=False, probe=False,
-                probe_cut=None) -> BlockMapper:
+                probe_cut=None, pools=None, with_occ=False,
+                collect_only=False) -> BlockMapper:
         key = (pi, K, errors, o, J, B, tier, cap, rev_compl, with_states,
-               with_exact, probe, probe_cut)
+               with_exact, probe, probe_cut, pools, with_occ, collect_only)
         if key not in self._runners:
             self._runners[key] = BlockMapper(
                 self.indices[pi], self.dtext, K=K, errors=errors, overlap=o,
                 J=J, B=B, tier=tier, cap=cap, rev_compl=rev_compl,
                 with_states=with_states, with_exact=with_exact, probe=probe,
-                probe_cut=probe_cut,
+                probe_cut=probe_cut, pools=pools, with_occ=with_occ,
+                collect_only=collect_only,
             )
         return self._runners[key]
 
-    def _runners_for(self, *args, **kw) -> list[BlockMapper]:
-        """One batch mapper per index part (arguments of `_runner`)."""
-        return [self._runner(pi, *args, **kw) for pi in range(len(self.indices))]
+    def _runners_for(self, *args, pools_list=None, **kw) -> list[BlockMapper]:
+        """One batch mapper per index part (arguments of `_runner`), each at
+        its part's calibrated pools where `pools_list` gives them."""
+        return [self._runner(pi, *args, **kw,
+                             pools=None if pools_list is None else pools_list[pi])
+                for pi in range(len(self.indices))]
 
     def _map_seq_ids(self, pi: int, i1: np.ndarray) -> np.ndarray:
         """Map part-local sequence ids to global ids (rc half after all fwd)."""
@@ -333,7 +358,9 @@ class MappabilityEngine:
     def _execute_blocks(self, c, locations, layout, starts, cnts, K, o, J,
                         errors, cap, params, csv_needed, csv, progress=None,
                         collect_exact=None):
-        """Run the probe and the tier-escalating batch loop over the blocks.
+        """Run the probe, the occupancy calibration and the tier-escalating
+        batch loop over the blocks (the split pipeline where its gate
+        opens).
 
         `collect_exact`, if given, is (E_flo, E_size) — per-part lists of
         arrays of length nkmers that receive each position's zero-error SA
@@ -342,6 +369,14 @@ class MappabilityEngine:
         self.stats["probe_skipped"] = 0
         self.stats["dimer_tier"] = False
         self.stats["tier_blocks"] = {}
+        # the split pipeline's phase-A batches and, per (tier, rung, exact,
+        # dimer), its phase-B batches and blocks
+        self.stats["phase_a_batches"] = 0
+        self.stats["rung_batches"] = {}
+        self.stats["rung_blocks"] = {}
+        if self._record_tier_sel:
+            self.stats["rung_sel"] = {}
+            self.stats["routes"] = []
         job = _Job(c, locations, layout, starts, cnts, K, o, J, errors, cap,
                    params, csv_needed, csv, collect_exact)
         plans = plans_for(errors, o)
@@ -355,16 +390,21 @@ class MappabilityEngine:
             return infix_pool_schedule(plans, K - o, n_max,
                                        tier.f_search / 4.0 if scale is None else scale)
 
-        def block_cost(tier):
+        def block_cost(tier, tuned_pools=None):
             """(time_cost, peak_slots) per block at this tier: time ~ the
-            state slots stepped (pool sizes plus extension steps, halved on
-            a dimer tier: two chars per row read), memory ~ the widest live
-            state tensor."""
-            pools = pools_at(tier)
-            cost = int(pools.sum()) + J * levels * tier.f_extend
+            state slots stepped (pool sizes, calibrated ones where given,
+            plus extension steps, halved on a dimer tier: two chars per row
+            read), memory ~ the widest live state tensor."""
+            if tuned_pools is not None:
+                psum = max(sum(p) for p in tuned_pools)
+                pmax = max(max(p) for p in tuned_pools)
+            else:
+                pools = pools_at(tier)
+                psum, pmax = int(pools.sum()), int(pools.max())
+            cost = psum + J * levels * tier.f_extend
             if tier.dimer:
                 cost //= 2
-            peak = max(int(pools.max()), J * tier.f_extend)
+            peak = max(pmax, J * tier.f_extend)
             return cost, peak
 
         tiers = list(self.tiers)
@@ -389,7 +429,8 @@ class MappabilityEngine:
         if use_dimer and not tiers[0].dimer:
             tiers[0] = dataclasses.replace(tiers[0], dimer=True)
         self.stats["dimer_tier"] = use_dimer
-        if forced or auto:
+        dimer_esc = forced or auto
+        if dimer_esc:
             expanded = tiers[:1]
             for t in tiers[1:]:
                 if t.exact and not t.dimer and float(pools_at(t).mean()) >= 12.0:
@@ -449,16 +490,28 @@ class MappabilityEngine:
                             ext_exact=False,
                         )
                         break
-        self.stats["tiers"] = tuple(tiers)
+
+        # calibrate the main cohort at its start tier (all blocks when no
+        # probe ran; the repeat-rich residual when it did)
+        cal = (job, tiers, plans, n_max, block_cost, progress)
+        pending, tuned, fe0 = self._run_calibration(pending, start_tier, *cal)
+        # f_extend tuning is adopted on the probe-residual path only (the
+        # JAX package measured a loss for the bulk tier-0 cohort)
+        if fe0 and start_tier > 0:
+            tiers[start_tier] = dataclasses.replace(tiers[start_tier], f_extend=fe0)
 
         # tier routing: capacity-overflow blocks skip ahead to the next tier
         # whose capacities are actually LARGER than the program they just
-        # overflowed; far-only blocks (fast-rank window misses, flagged
-        # dimer sub-blocks) go to the next tier, whose same-capacity exact
-        # (or mono) program suffices for them
+        # overflowed (calibrated pools count); far-only blocks (fast-rank
+        # window misses, flagged dimer sub-blocks) go to the next tier,
+        # whose same-capacity exact (or mono) program suffices for them
+        tuned_by_tier = {start_tier: tuned}
+
         def tier_caps(i):
-            return (int(pools_at(tiers[i]).sum()), tiers[i].f_extend,
-                    tiers[i].f_collect)
+            ti = tuned_by_tier.get(i)
+            psum = (max(sum(p) for p in ti) if ti is not None
+                    else int(pools_at(tiers[i]).sum()))
+            return (psum, tiers[i].f_extend, tiers[i].f_collect)
 
         caps_by_tier = [tier_caps(i) for i in range(len(tiers))]
 
@@ -468,8 +521,12 @@ class MappabilityEngine:
                     return j
             return None
 
-        def tier_B(t_j, npend):
-            cost, peak = block_cost(tiers[t_j])
+        def tier_B(t_j, npend, pools_over=None):
+            cost, peak = block_cost(
+                tiers[t_j],
+                pools_over if pools_over is not None
+                else (tuned if t_j == start_tier else None),
+            )
             B = max(8, min(B0, WORK // max(1, cost), SLOTS // max(1, peak)))
             if t_j == start_tier:
                 # shrink (power-of-two quantized) when few blocks remain
@@ -486,6 +543,16 @@ class MappabilityEngine:
                 B = min(B, rung)
             return B
 
+        # the split pipeline (phase-A infix collectors, phase-B extenders
+        # per survivor rung): the JAX package's gate, copied so that the
+        # routing and the stats equal its — one index part, plain counting,
+        # and only where the extension dominates (J >= 16)
+        use_split = (
+            collect_exact is None
+            and not csv_needed
+            and len(self.indices) == 1
+            and J >= 16
+        )
         pending_at = [np.empty(0, np.int64) for _ in tiers]
         pending_at[start_tier] = pending
         # unresolved blocks, split by whether they actually RAN at the last
@@ -497,11 +564,40 @@ class MappabilityEngine:
             pending = pending_at[t_i]
             if len(pending) == 0:
                 continue
-            B = tier_B(t_i, len(pending))
-            far_blocks, cap_blocks = self._run_blocks(
-                job, tier, pending, B, t_i,
-                progress if t_i == start_tier else None,
-            )
+            if t_i == start_tier:
+                tuned_i = tuned
+            else:
+                # escalation cohorts get their own calibration (cached per
+                # configuration and tier), and the routing table follows
+                # the capacities it sets
+                pending, tuned_i, fe_i = self._run_calibration(pending, t_i, *cal)
+                pending_at[t_i] = pending
+                if fe_i and start_tier > 0:
+                    tiers[t_i] = tier = dataclasses.replace(tier, f_extend=fe_i)
+                tuned_by_tier[t_i] = tuned_i
+                caps_by_tier[t_i] = tier_caps(t_i)
+                if len(pending) == 0:
+                    continue
+            B = tier_B(t_i, len(pending), pools_over=tuned_i)
+            if use_split:
+                far_blocks, cap_blocks, unres = self._run_tier_split(
+                    job, t_i, tier, pending, B, tuned_i, start_tier, progress,
+                    dimer_esc,
+                )
+                if len(unres):
+                    unresolved_other.append(unres)
+            else:
+                far_blocks, cap_blocks = self._run_blocks(
+                    job, tier, pending, B, t_i,
+                    progress if t_i == start_tier else None, pools_list=tuned_i,
+                )
+            if self._record_tier_sel:
+                routes = self.stats["routes"]
+                if len(far_blocks):
+                    routes.append((t_i, t_i + 1 if t_i + 1 < len(tiers) else None,
+                                   "far", len(far_blocks)))
+                if len(cap_blocks):
+                    routes.append((t_i, next_cap_tier(t_i), "cap", len(cap_blocks)))
             if len(far_blocks):
                 if t_i + 1 < len(tiers):
                     pending_at[t_i + 1] = np.concatenate(
@@ -516,16 +612,17 @@ class MappabilityEngine:
                      else unresolved_other).append(cap_blocks)
                 else:
                     pending_at[j] = np.concatenate([pending_at[j], cap_blocks])
+        self.stats["tiers"] = tuple(tiers)
         if unresolved_ran_last or unresolved_other:
             # Rescue pass: the ladder's results contract is the STATIC final
             # schedule.  Blocks that fell off the routing table before the
-            # last tier, or overflowed a modified last tier, get one pass at
-            # the static largest tier of this engine's ladder before we fail
-            # (the static ladder's own last tier, whatever twins the
-            # expanded ladder holds).
+            # last tier, or overflowed a calibrated or modified last tier,
+            # get one pass at the static largest tier of this engine's
+            # ladder before we fail (the static ladder's own last tier,
+            # whatever twins the expanded ladder holds).
             last = len(tiers) - 1
             pristine = self.tiers[-1]
-            last_was_static = tiers[last] == pristine
+            last_was_static = tuned_by_tier.get(last) is None and tiers[last] == pristine
             rescue = unresolved_other + (
                 [] if last_was_static else unresolved_ran_last
             )
@@ -540,6 +637,351 @@ class MappabilityEngine:
                 raise RuntimeError(
                     f"{n_still} blocks overflowed the largest frontier tier"
                 )
+
+    def _run_calibration(self, pending, cal_idx, job, tiers, plans, n_max,
+                         block_cost, progress):
+        """Occupancy calibration of the cohort `pending` at tier `cal_idx`
+        (port of the JAX engine's run_calibration, line for line).
+
+        The static pool schedule is a safe but crude estimate; a sample batch
+        of the cohort runs at an 8x wider measuring tier with per-step
+        candidate counts (`BlockMapper(with_occ=True)`), its resolved blocks
+        are scattered, and the rest of the cohort runs at pools sized to the
+        measurement (tighter or, for repeat-rich cohorts, wider), with an
+        f_extend from the sample's survivor counts.  Cached per (K, e, o,
+        dimer, f_extend, tier) across compute calls.  Returns (the pending
+        blocks: the unsampled ones, then the sample's overflows; tuned pools
+        per part or None; f_extend or None)."""
+        K, o, J, errors = job.K, job.o, job.J, job.errors
+        cal_tier = tiers[cal_idx]
+        tuned_key = (K, errors, o, cal_tier.dimer, cal_tier.f_extend, cal_idx)
+        entry = self._tuned_pools.get(tuned_key, "absent")
+        if isinstance(entry, tuple):
+            pools_e, fe_e = entry
+            return pending, (pools_e if isinstance(pools_e, list) else None), fe_e
+        base0 = infix_pool_schedule(plans, K - o, n_max, cal_tier.f_search / 4.0)
+        if not (
+            entry == "absent"
+            and self._calibrate_enabled
+            and job.collect_exact is None
+            and not job.csv_needed
+            and int(base0.sum()) >= 96
+        ):
+            return pending, None, None
+        # measure on an 8x wider variant of the tier where memory allows:
+        # counts are capped by the measuring program's own pools (candidates
+        # = fan-out x pool), so a static-pool measurement cannot see demand
+        # beyond 4x static; deep tiers whose 8x schedule would not fit a
+        # 256-block batch measure at their own scale
+        meas_tier = dataclasses.replace(cal_tier, f_search=cal_tier.f_search * 8)
+        peak8 = int(infix_pool_schedule(plans, K - o, n_max,
+                                        meas_tier.f_search / 4.0).max())
+        if (3 << 20) // max(1, peak8) < 256:
+            meas_tier = cal_tier
+        # bound the batch by the measuring tier's full peak (infix pool and
+        # the J x f_extend extension frontier)
+        _, peak_meas = block_cost(meas_tier)
+        B_cal = min(self._cal_batch, max(64, (1 << 20) // max(1, peak_meas)))
+        if len(pending) < 3 * B_cal:
+            return pending, None, None
+        idx = np.unique(np.linspace(0, len(pending) - 1, B_cal).astype(np.int64))
+        sel = pending[idx]
+        runs = self._runners_for(K, errors, o, J, B_cal, meas_tier, job.cap,
+                                 job.params.rev_compl, with_occ=True)
+        t0 = time.perf_counter()
+        outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B_cal)
+        self.stats["dispatch_s"] += time.perf_counter() - t0
+        self.stats["batches"] += 1
+        t0 = time.perf_counter()
+        outs = [{k: v.cpu().numpy() for k, v in out.items()} for out in outs]
+        self.stats["fetch_s"] += time.perf_counter() - t0
+        nb = len(sel)
+        ovf = np.zeros(nb, bool)
+        for out in outs:
+            ovf |= out["overflow"][:nb]
+        t0 = time.perf_counter()
+        self._scatter_batch(job.c, [out["hits"] for out in outs], job.cap,
+                            job.starts[sel], job.cnts[sel], ~ovf)
+        self.stats["scatter_s"] += time.perf_counter() - t0
+        P_ = len(plans)
+        # upper clamp: the next tier's scale (beyond the next rung the
+        # ladder handles it)
+        later = tiers[cal_idx + 1 :]
+        has_wider = any(t.f_search > cal_tier.f_search for t in later)
+        next_scale = max((t.f_search for t in later if t.f_search > cal_tier.f_search),
+                         default=cal_tier.f_search) / 4.0
+        tuned, ratios = [], []
+        for pi, out in enumerate(outs):
+            # overflowing blocks included: they are the heavy cohort the
+            # pools must be provisioned for
+            occ = out["occ"][:nb].astype(np.int64)  # [nb, T]
+            n_pi = self.data.parts[pi].n_total
+            base_pi = infix_pool_schedule(plans, K - o, n_pi, cal_tier.f_search / 4.0)
+            clamp_pi = infix_pool_schedule(plans, K - o, n_pi, next_scale)
+            # a block escalates if it exceeds the pool at ANY step: rank
+            # blocks by their worst step demand relative to the static
+            # schedule, drop the top 2% (they escalate), provision the
+            # per-step max over the rest with x1.2+1 headroom
+            ratio = (occ / np.maximum(base_pi[None, :], 1)).max(axis=1)
+            kth = np.quantile(ratio, 0.98)
+            kept = occ[ratio <= kth]
+            dem = kept.max(axis=0) if len(kept) else occ.max(axis=0)
+            # pools may decay at most one step behind demand: a down-resize
+            # compacts the entering carry (the previous step's survivors)
+            dem = dem.astype(np.float64)
+            dem[1:] = np.maximum(dem[1:], dem[:-1])
+            tp = np.array([_quant4(max(P_ + 1, 1.2 * dv + 1.0)) for dv in dem],
+                          np.int64)
+            tp = np.minimum(tp, np.maximum(base_pi, clamp_pi))
+            tuned.append(tuple(int(x) for x in tp))
+            ratios.append(float(tp.sum()) / max(1.0, float(base_pi.sum())))
+        # adoption rule: a small tightening does not pay, a widening (the
+        # residual cohorts) always does
+        if 0.7 < max(ratios) <= 1.0:
+            tuned = None
+        # the last tier of the ladder never tightens: a block that fits the
+        # static final tier but not the tuned one would have nowhere to go
+        if not has_wider:
+            tuned = None
+        # extension frontier: the p90 of the sample's survivor counts (the
+        # extension tree's root demand), clamped to [2, 8x static]
+        surv = np.zeros(nb, np.int64)
+        for out in outs:
+            surv = np.maximum(surv, out["surv"][:nb].astype(np.int64))
+        fe = int(np.clip(_quant4(1.2 * float(np.quantile(surv, 0.90)) + 1.0),
+                         2, 8 * max(1, cal_tier.f_extend)))
+        if fe == cal_tier.f_extend or (not has_wider and fe < cal_tier.f_extend):
+            # final tier: widening f_extend is safe, tightening is not
+            fe = None
+        self._tuned_pools[tuned_key] = (tuned if tuned else "static", fe)
+        mask = np.ones(len(pending), bool)
+        mask[idx] = False
+        pending = np.concatenate([pending[mask], sel[ovf]])
+        if progress is not None:
+            progress.add(int((~ovf).sum()))
+        return pending, tuned, fe
+
+    # ------------------------------------------------------------------
+    # The split pipeline: phase-A infix collectors and per-rung phase-B
+    # extenders.  Extension frontiers are sized to each block's measured
+    # survivor count (fetched as one uint16 per block) instead of a whole
+    # cohort padding to its worst member, and an extension overflow re-runs
+    # only the extension at the next rung, with the same device-resident
+    # states.
+
+    # extension rungs; from _EXACT_RUNG_MIN on, the extension starts on the
+    # exact path (below it, the fast path first, far-flagged blocks re-run
+    # exact); dimer extension only in [_DIMER_RUNG_MIN, _DIMER_RUNG_MAX].
+    # Mode ladder per block: fast-dimer -> exact-dimer -> exact-mono (far
+    # advances the mode at the same rung, a capacity overflow the rung).
+    # The JAX package's constants, so that the routing equals its.
+    _RUNGS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+              16384, 32768)
+    _EXACT_RUNG_MIN = 256
+    _DIMER_RUNG_MIN = 16
+    _DIMER_RUNG_MAX = 128
+
+    def _extender(self, K, errors, o, J, B2, Fe, cap, rev_compl, exact,
+                  dimer=False, fe_sched=None, with_occ=False) -> Extender:
+        key = ("ext", K, errors, o, J, B2, Fe, cap, rev_compl, exact, dimer,
+               fe_sched, with_occ)
+        if key not in self._runners:
+            self._runners[key] = Extender(
+                self.indices[0], self.dtext, K=K, errors=errors, overlap=o, J=J,
+                B=B2, Fe=Fe, cap=cap, rev_compl=rev_compl, exact=exact,
+                dimer=dimer, fe_sched=fe_sched, with_occ=with_occ,
+            )
+        return self._runners[key]
+
+    def _run_tier_split(self, job, t_i, tier, pending, B, tuned_i, start_tier,
+                        progress, dimer_ext):
+        """One tier of the split pipeline (one index part, plain counting),
+        in the JAX engine's dispatch and drain order: up to 8 phase-A
+        batches and 4 phase-B batches in flight (the per-level schedules
+        adopted and the blocks per tier depend on it).
+
+        Returns (far_blocks, cap_blocks, unresolved): infix far/cap
+        overflows escalate tiers as on the fused path; `unresolved` are
+        blocks whose extension exceeded the largest rung (the caller's
+        static rescue pass takes them)."""
+        K, o, J, errors, cap = job.K, job.o, job.J, job.errors, job.cap
+        rev_compl = job.params.rev_compl
+        layout, starts, cnts, c = job.layout, job.starts, job.cnts, job.c
+        arun = self._runner(0, K, errors, o, J, B, tier, cap, rev_compl,
+                            pools=None if tuned_i is None else tuned_i[0],
+                            collect_only=True)
+        stats = self.stats
+        dev = self.device
+        still_far: list[np.ndarray] = []
+        still_cap: list[np.ndarray] = []
+        unresolved: list[np.ndarray] = []
+        inflight_a: list[tuple] = []
+        inflight_b: list[tuple] = []
+        limit = layout.start + layout.length
+
+        def rung_of(surv):
+            # headroom of the f_extend calibration rule (the frontier can
+            # grow past the root during the tree split)
+            need = 1.2 * float(surv) + 1.0
+            for r in self._RUNGS:
+                if r >= need:
+                    return r
+            return self._RUNGS[-1] if surv <= self._RUNGS[-1] else None
+
+        def b_batch_size(Fe):
+            b = max(2, SLOTS // max(1, J * Fe))
+            return min(4096, 1 << int(np.log2(b)))
+
+        def dispatch_b(a_out, rows, gids, Fe, exact, dimer):
+            B2 = b_batch_size(Fe)
+            for s in range(0, len(rows), B2):
+                rs = np.asarray(rows[s : s + B2], np.int32)
+                gs = np.asarray(gids[s : s + B2])
+                n = len(rs)
+                # pow2-padded batches (the JAX package's program shapes)
+                npad = min(B2, 1 << int(np.ceil(np.log2(max(2, n)))))
+                ridx = np.zeros(npad, np.int32)
+                ridx[:n] = rs
+                gstarts = np.zeros(npad, np.uint32)
+                gstarts[:n] = (layout.start + starts[gs]).astype(np.uint32)
+                bcnts = np.zeros(npad, np.int32)
+                bcnts[:n] = cnts[gs]
+                # per-level extension schedule: the first big-enough batch
+                # of a rung measures per-level demand; later batches run a
+                # decayed frontier schedule (demand shrinks down the tree)
+                skey = (K, errors, o, Fe, exact, dimer)
+                entry = self._ext_sched.get(skey)
+                sched = entry if isinstance(entry, tuple) else None
+                measure = (entry is None and Fe >= 64 and Fe < self._RUNGS[-1]
+                           and n >= 32)
+                if measure:
+                    self._ext_sched[skey] = "measuring"
+                run_b = self._extender(K, errors, o, J, npad, Fe, cap, rev_compl,
+                                       exact, dimer=dimer, fe_sched=sched,
+                                       with_occ=measure)
+                t0 = time.perf_counter()
+                out = run_b(torch.from_numpy(gstarts.view(np.int32)).to(dev),
+                            torch.from_numpy(bcnts).to(dev), limit,
+                            (a_out["st"], a_out["valid"]),
+                            torch.from_numpy(ridx).to(dev), n)
+                stats["dispatch_s"] += time.perf_counter() - t0
+                inflight_b.append((gs, a_out, rs, Fe, exact, dimer, out, measure))
+                rkey = (t_i, Fe, exact, dimer)
+                stats["rung_batches"][rkey] = stats["rung_batches"].get(rkey, 0) + 1
+                stats["rung_blocks"][rkey] = stats["rung_blocks"].get(rkey, 0) + n
+                if self._record_tier_sel:
+                    stats["rung_sel"].setdefault((t_i, Fe, exact, dimer), []).append(gs)
+
+        def drain_b(one):
+            while inflight_b and (len(inflight_b) >= 4 or one):
+                gs, a_out, rs, Fe, exact, dimer, out, measure = inflight_b.pop(0)
+                t0 = time.perf_counter()
+                hits = out["hits"].cpu().numpy()
+                ovf = out["overflow"].cpu().numpy()
+                ovfc = out["overflow_cap"].cpu().numpy()
+                stats["fetch_s"] += time.perf_counter() - t0
+                n = len(gs)
+                ok = ~ovf[:n]
+                if measure:
+                    skey = (K, errors, o, Fe, exact, dimer)
+                    if ok.sum() >= 16:
+                        occ = out["ext_occ"].cpu().numpy()[:n][ok].astype(np.int64)
+                        dem = occ.max(axis=0).astype(np.float64)
+                        # one level behind: the compaction into level l must
+                        # hold level l-1's survivors
+                        dem[1:] = np.maximum(dem[1:], dem[:-1])
+                        sched = np.array(
+                            [min(Fe, max(4, 1 << int(np.ceil(
+                                np.log2(max(4.0, 1.2 * d + 1.0))))))
+                             for d in dem], np.int64)
+                        # adopt only a real shrink
+                        if sched.sum() < 0.85 * Fe * len(dem):
+                            self._ext_sched[skey] = tuple(int(x) for x in sched)
+                        else:
+                            self._ext_sched[skey] = "flat"
+                    else:
+                        self._ext_sched[skey] = "flat"
+                t0 = time.perf_counter()
+                for i in np.nonzero(ok)[0]:
+                    i0 = int(starts[gs[i]])
+                    cnt_i = int(cnts[gs[i]])
+                    c[i0 : i0 + cnt_i] = hits[i, :cnt_i]
+                stats["scatter_s"] += time.perf_counter() - t0
+                bad = np.nonzero(~ok)[0]
+                if len(bad):
+                    capb = ovfc[:n][bad]
+                    far_rows = bad[~capb]
+                    if len(far_rows):
+                        # far: advance the mode at the same rung —
+                        # fast-dimer -> exact-dimer -> exact-mono
+                        nm = (True, True) if dimer and not exact else (True, False)
+                        dispatch_b(a_out, rs[far_rows], gs[far_rows], Fe, *nm)
+                    cap_rows = bad[capb]
+                    if len(cap_rows):
+                        nxt = next((r for r in self._RUNGS if r > Fe), None)
+                        if nxt is None:
+                            unresolved.append(gs[cap_rows])
+                        else:
+                            dispatch_b(
+                                a_out, rs[cap_rows], gs[cap_rows], nxt,
+                                exact or nxt >= self._EXACT_RUNG_MIN,
+                                dimer and self._DIMER_RUNG_MIN <= nxt <= self._DIMER_RUNG_MAX,
+                            )
+                if one:
+                    break
+
+        def drain_a(one):
+            while inflight_a and (len(inflight_a) >= 8 or one):
+                sel, a_out = inflight_a.pop(0)
+                nb = len(sel)
+                t0 = time.perf_counter()
+                surv = a_out["surv"].cpu().numpy()[:nb]
+                ovf = a_out["overflow"].cpu().numpy()[:nb]
+                ovfc = a_out["overflow_cap"].cpu().numpy()[:nb]
+                stats["fetch_s"] += time.perf_counter() - t0
+                stats["overflow_blocks"] += int(ovf.sum())
+                stats["max_tier"] = max(stats["max_tier"], t_i)
+                tb = stats["tier_blocks"]
+                tb[t_i] = tb.get(t_i, 0) + nb
+                still_cap.append(sel[ovfc])
+                still_far.append(sel[ovf & ~ovfc])
+                okm = ~ovf
+                # zero-survivor blocks: the infix neighbourhood is absent,
+                # so every k-mer count is 0 and no extension runs
+                for i in np.nonzero(okm & (surv == 0))[0]:
+                    i0 = int(starts[sel[i]])
+                    c[i0 : i0 + int(cnts[sel[i]])] = 0
+                live = np.nonzero(okm & (surv > 0))[0]
+                if len(live):
+                    rungs = np.array([rung_of(x) for x in surv[live]])
+                    for r in np.unique(rungs):
+                        m = rungs == r
+                        dispatch_b(
+                            a_out, live[m], sel[live[m]], int(r),
+                            int(r) >= self._EXACT_RUNG_MIN,
+                            dimer_ext and self._DIMER_RUNG_MIN <= int(r) <= self._DIMER_RUNG_MAX,
+                        )
+                if t_i == start_tier and progress is not None:
+                    progress.add(nb)
+                drain_b(False)
+                if one:
+                    break
+
+        for s in range(0, len(pending), B):
+            sel = pending[s : s + B]
+            t0 = time.perf_counter()
+            outs = self._run_batch([arun], layout, starts[sel], cnts[sel], B)
+            stats["dispatch_s"] += time.perf_counter() - t0
+            stats["batches"] += 1
+            stats["phase_a_batches"] += 1
+            inflight_a.append((sel, outs[0]))
+            drain_a(False)
+        while inflight_a:
+            drain_a(True)
+        while inflight_b:
+            drain_b(True)
+        cat = lambda xs: np.concatenate(xs) if xs else np.empty(0, np.int64)  # noqa: E731
+        return cat(still_far), cat(still_cap), cat(unresolved)
 
     def _probe(self, job, pending, tier0, probe_cut, Bp, progress):
         """Probe `pending` in batches of Bp at tier0: skipped blocks get
@@ -590,16 +1032,18 @@ class MappabilityEngine:
         pending = np.concatenate(residual) if residual else np.empty(0, np.int64)
         return pending, abandoned
 
-    def _run_blocks(self, job, tier, ids, B, t_i, progress):
-        """Run the blocks `ids` at one tier in batches of B; scatter the
-        resolved ones (frequencies summed over the parts, CSV locations,
-        zero-error keys per part) and return (far-only, capacity) overflow
-        ids (ORed over the parts)."""
+    def _run_blocks(self, job, tier, ids, B, t_i, progress, pools_list=None):
+        """Run the blocks `ids` at one tier in batches of B (at the parts'
+        calibrated pools where given); scatter the resolved ones
+        (frequencies summed over the parts, CSV locations, zero-error keys
+        per part) and return (far-only, capacity) overflow ids (ORed over
+        the parts)."""
         stats = self.stats
         runs = self._runners_for(job.K, job.errors, job.o, job.J, B, tier,
                                  job.cap, job.params.rev_compl,
                                  with_states=job.csv_needed,
-                                 with_exact=job.collect_exact is not None)
+                                 with_exact=job.collect_exact is not None,
+                                 pools_list=pools_list)
         still_far: list[np.ndarray] = []
         still_cap: list[np.ndarray] = []
         for s in range(0, len(ids), B):

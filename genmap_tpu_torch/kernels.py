@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Seven kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
+Nine kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
 into one shared library each, loaded with ctypes):
 
   extract_needles  needle windows from the packed text
@@ -14,6 +14,8 @@ into one shared library each, loaded with ctypes):
   locate           SA rows to (sequence, position) by LF walks (CSV, -ep)
   dimer_step       the candidate step on the dimer rank rows: 0, 1 or 2
                    characters per state and row read
+  seed_lookup      the infix scan's starting pool from the seed tables
+  gather_states    the split pipeline's rung gather of phase-A survivor rows
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it (the CPU tests' path and the reference the kernel
@@ -337,11 +339,11 @@ def candidate_step(index, st, valid, *, per_block: int, inner: int, nch,
 
 COMPACT = Kernel(
     "compact", "compact.cu", "genmap_tpu/search/engine.py:168",
-    [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P],
+    [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P],
 )
 
 
-def compact_plain(arrays, valid, F: int):
+def compact_plain(arrays, valid, F: int, count: bool = False):
     """Plain PyTorch version of `compact`."""
     R, rows, M = arrays.shape
     v = valid.bool()
@@ -351,17 +353,19 @@ def compact_plain(arrays, valid, F: int):
     out = torch.zeros((R, rows, F), dtype=arrays.dtype, device=arrays.device)
     out[:, r_i, rank_[r_i, m_i]] = arrays[:, r_i, m_i]
     out_valid = torch.arange(F, device=arrays.device)[None, :] < nvalid[:, None]
-    return out, out_valid.to(torch.uint8), (nvalid > F).to(torch.uint8)
+    res = (out, out_valid.to(torch.uint8), (nvalid > F).to(torch.uint8))
+    return (*res, nvalid.to(torch.int32)) if count else res
 
 
-def compact(arrays, valid, F: int):
+def compact(arrays, valid, F: int, count: bool = False):
     """Keep the first F valid entries of every row, in their order.
 
     arrays: [R, rows, M] int32 operands; valid: [rows, M] uint8.  Returns
     (out [R, rows, F] int32, out_valid [rows, F] uint8, overflow [rows]
-    uint8 = more than F valid).  Unused slots are zero."""
+    uint8 = more than F valid), and with `count` also each row's valid
+    count before the cut (nvalid [rows] int32).  Unused slots are zero."""
     if not arrays.is_cuda:
-        return compact_plain(arrays, valid, F)
+        return compact_plain(arrays, valid, F, count)
     dev = arrays.device
     R, rows, M = arrays.shape
     _check(arrays, "arrays", torch.int32, device=dev)
@@ -369,13 +373,16 @@ def compact(arrays, valid, F: int):
     out = torch.empty((R, rows, F), dtype=torch.int32, device=dev)
     out_valid = torch.empty((rows, F), dtype=torch.uint8, device=dev)
     ovf = torch.empty((rows,), dtype=torch.uint8, device=dev)
+    nvalid = torch.empty((rows,), dtype=torch.int32, device=dev) if count else None
+    res = (out, out_valid, ovf) + ((nvalid,) if count else ())
     if rows == 0:
-        return out, out_valid, ovf
+        return res
     COMPACT.launch(
         arrays.data_ptr(), valid.data_ptr(), R, rows, M, F, out.data_ptr(),
-        out_valid.data_ptr(), ovf.data_ptr(), _stream(arrays),
+        out_valid.data_ptr(), ovf.data_ptr(),
+        None if nvalid is None else nvalid.data_ptr(), _stream(arrays),
     )
-    return out, out_valid, ovf
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -776,5 +783,133 @@ def dimer_step(index, st, valid, *, per_block: int, inner: int, consume,
     return out, valid2, far
 
 
+# ---------------------------------------------------------------------------
+# 8. seed_lookup
+# ---------------------------------------------------------------------------
+
+SEED_LOOKUP = Kernel(
+    "seed_lookup", "seed_lookup.cu", "genmap_tpu/search/engine.py:529",
+    [_P, _P, _P, _I, _P, _I, _I, _U, _U, _I, _I, _P, _P, _P],
+)
+
+
+def seed_lookup_plain(index, needles, a_pos, t_seed: int, Fp: int, n_total: int):
+    """Plain PyTorch version of `seed_lookup`."""
+    B = needles.shape[0]
+    P = a_pos.shape[0]
+    dev = needles.device
+    st = torch.zeros((5, B, Fp), dtype=torch.int32, device=dev)
+    st[4] = (torch.arange(Fp, dtype=torch.int32, device=dev) % P)[None, :]
+    valid = torch.zeros((B, Fp), dtype=torch.uint8, device=dev)
+    if t_seed == 0:
+        st[2, :, :P] = rank.as_i32(torch.tensor(n_total, dtype=torch.int64))
+        valid[:, :P] = 1
+        return st, valid
+    off = rank.seed_level_offset(t_seed)
+    pw = 4 ** torch.arange(t_seed - 1, -1, -1, dtype=torch.int64, device=dev)
+    for p, a_p in enumerate(a_pos.tolist()):
+        w = needles[:, a_p : a_p + t_seed].to(torch.int64)  # [B, t_seed]
+        okw = (w < 4).all(dim=-1)
+        wc = w.clamp(max=3)
+        code = off + (wc * pw).sum(dim=-1)
+        rc_code = off + ((3 - wc) * pw.flip(0)).sum(dim=-1)
+        size = index.seed_size[code]
+        st[0, :, p] = index.seed_mlo[code]
+        st[1, :, p] = index.seed_mlo[rc_code]
+        st[2, :, p] = size
+        valid[:, p] = (okw & (size != 0)).to(torch.uint8)
+    return st, valid
+
+
+def seed_lookup(index, needles, a_pos, t_seed: int, Fp: int, n_total: int):
+    """The pooled infix scan's starting states of every block.
+
+    needles [B, Ln] uint8; a_pos [P] int32: where plan p's first t_seed
+    exact steps read their needle window.  Slot p < P holds plan p's state
+    after those steps, looked up in the index's seed tables (seed_mlo and
+    seed_size of the window's code, seed_mlo of its reverse complement's),
+    invalid where the window holds an N or the interval is empty; with
+    t_seed = 0 it holds the whole index (size n_total, the part's symbols).  Slots P..Fp-1 are
+    empty.  Returns (st [5, B, Fp] int32 rows flo, rlo, size (uint32 bits),
+    err = 0, plan id = slot % P; valid [B, Fp] uint8)."""
+    if not needles.is_cuda:
+        return seed_lookup_plain(index, needles, a_pos, t_seed, Fp, n_total)
+    dev = needles.device
+    B, Ln = needles.shape
+    P = a_pos.shape[0]
+    if not 1 <= P <= Fp or (t_seed and not index.has_seed) or t_seed > 15:
+        raise ValueError(f"seed_lookup: bad geometry P={P} Fp={Fp} t_seed={t_seed}")
+    _check(needles, "needles", torch.uint8, device=dev)
+    _check(a_pos, "a_pos", torch.int32, (P,), dev)
+    _check(index.seed_mlo, "seed_mlo", torch.int32, device=dev)
+    _check(index.seed_size, "seed_size", torch.int32, device=dev)
+    st = torch.empty((5, B, Fp), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, Fp), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return st, valid
+    SEED_LOOKUP.launch(
+        index.seed_mlo.data_ptr(), index.seed_size.data_ptr(), needles.data_ptr(),
+        Ln, a_pos.data_ptr(), P, t_seed, rank.seed_level_offset(t_seed),
+        int(n_total) & 0xFFFFFFFF, B, Fp, st.data_ptr(), valid.data_ptr(),
+        _stream(needles),
+    )
+    return st, valid
+
+
+# ---------------------------------------------------------------------------
+# 9. gather_states
+# ---------------------------------------------------------------------------
+
+GATHER_STATES = Kernel(
+    # sl() of _run_tier_split (the take + cut or pad of phase-A states)
+    "gather_states", "gather_states.cu", "genmap_tpu/engine/mappability.py:1477",
+    [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+)
+
+
+def gather_states_plain(st, valid, ridx, n: int, Fe: int):
+    """Plain PyTorch version of `gather_states`."""
+    r = ridx.to(torch.int64)
+    Fc = st.shape[2]
+    x, v = st[:, r], valid[r]
+    if Fc >= Fe:
+        x, v = x[..., :Fe], v[:, :Fe]
+    else:
+        x, v = Fn.pad(x, (0, Fe - Fc)), Fn.pad(v, (0, Fe - Fc))
+    live = torch.arange(r.shape[0], device=st.device) < n
+    return x.contiguous(), (v.bool() & live[:, None]).to(torch.uint8)
+
+
+def gather_states(st, valid, ridx, n: int, Fe: int):
+    """Rows `ridx` of the phase-A survivor states, cut or zero-padded to Fe
+    slots.
+
+    st [4, B, Fc] int32 (flo, rlo, size, err); valid [B, Fc] uint8; ridx
+    [npad] int32 row ids (zero-padded past the first n).  Returns (st2 [4,
+    npad, Fe], valid2 [npad, Fe]): each output row copies the first
+    min(Fc, Fe) slots of its row and zeros the rest; rows >= n are
+    invalid."""
+    if not st.is_cuda:
+        return gather_states_plain(st, valid, ridx, n, Fe)
+    dev = st.device
+    R, B, Fc = st.shape
+    npad = ridx.shape[0]
+    if R != 4 or not 0 <= n <= npad:
+        raise ValueError(f"gather_states: bad geometry R={R} n={n} npad={npad}")
+    _check(st, "st", torch.int32, device=dev)
+    _check(valid, "valid", torch.uint8, (B, Fc), dev)
+    _check(ridx, "ridx", torch.int32, (npad,), dev)
+    out = torch.empty((4, npad, Fe), dtype=torch.int32, device=dev)
+    out_valid = torch.empty((npad, Fe), dtype=torch.uint8, device=dev)
+    if npad * Fe == 0:
+        return out, out_valid
+    GATHER_STATES.launch(
+        st.data_ptr(), valid.data_ptr(), B, Fc, ridx.data_ptr(), npad, n, Fe,
+        out.data_ptr(), out_valid.data_ptr(), _stream(st),
+    )
+    return out, out_valid
+
+
 KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
-                               COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP)}
+                               COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP,
+                               SEED_LOOKUP, GATHER_STATES)}

@@ -1,8 +1,8 @@
 """Lockstep (k,e)-search over blocks of adjacent k-mers, on torch tensors.
 
 Port of `genmap_tpu/search/engine.py` (the fused per-tier programs on the
-mono and on the dimer rank rows, with the unique-infix probe; without the
-split pipeline, which only changes speed, never results):
+mono and on the dimer rank rows, with the unique-infix probe, occupancy
+counts for the engine's calibration, and the split pipeline's two phases):
 
   * a batch of B blocks is processed at once; each block contributes one
     common overlap infix that is searched with every optimal search scheme
@@ -24,6 +24,10 @@ split pipeline, which only changes speed, never results):
     plan steps fuse pairwise within each same-direction run, and a state
     that touches a flagged (sentinel/N-adjacent) sub-block or leaves the
     fast window flags its block to the next (mono) tier
+  * the split pipeline's phase A (`BlockMapper(collect_only=True)`) stops
+    after the infix scan and keeps the packed survivors on the device; its
+    phase B (`Extender`) extends rows of them gathered into a batch sized to
+    their survivor count
 
 PyTorch runs eagerly, so the JAX package's `lax.scan` segments are Python
 loops over steps; per-step plan attributes (needle position, direction,
@@ -48,7 +52,6 @@ from genmap_tpu_torch.ops.rank import (
     DeviceIndex,
     DeviceText,
     extract_needles,
-    seed_level_offset,
 )
 from genmap_tpu_torch.search.schemes import plans_for
 
@@ -231,11 +234,18 @@ def probe_thresholds(plans, infix_off, cut=None) -> np.ndarray:
     return (lreq_s[:t].max(axis=0) == 0).astype(np.uint32)
 
 
-def _compact(st, valid, F: int):
+def _compact(st, valid, F: int, count: bool = False):
     """Keep the first F valid states of every row ([R, rows, M] -> F),
-    in order; returns (st, valid, overflowed [rows] bool)."""
-    out, out_valid, ovf = kernels.compact(st, valid, F)
-    return out, out_valid, ovf.bool()
+    in order; returns (st, valid, overflowed [rows] bool), and with `count`
+    also the rows' valid counts before the cut ([rows] int32)."""
+    res = kernels.compact(st, valid, F, count)
+    return (res[0], res[1], res[2].bool()) + tuple(res[3:])
+
+
+def _u16(x: torch.Tensor) -> torch.Tensor:
+    """Counts clipped to 65535 and stored as uint16, as the JAX package
+    ships them."""
+    return x.clamp(0, 65535).to(torch.uint16)
 
 
 def _resize(st, valid, Fnew: int):
@@ -265,40 +275,26 @@ class _InfixSchedule:
         self.u = torch.as_tensor(u_s, dtype=torch.int32, device=dev)
         self.lreq = torch.as_tensor(lreq_s, dtype=torch.int32, device=dev)
         self.act = torch.ones(self.P, dtype=torch.uint8, device=dev)
+        self._seed_pos: dict = {}
+
+    def seed_pos(self, t_seed: int) -> torch.Tensor:
+        """[P] int32: where each plan's first t_seed exact steps read their
+        needle window (the lowest position they consume)."""
+        if t_seed not in self._seed_pos:
+            a = self.pos_np[:t_seed].min(axis=0) if t_seed else np.zeros(self.P)
+            self._seed_pos[t_seed] = torch.as_tensor(
+                a.astype(np.int32), device=self.pos.device)
+        return self._seed_pos[t_seed]
 
 
 def initial_states(index: DeviceIndex, sched: _InfixSchedule, needles,
                    t_seed: int, Fp: int, n_total: int):
     """The infix scan's starting pool ((st [5, B, Fp], valid [B, Fp])): slot
     p < P holds plan p's state after its first t_seed exact steps, looked up
-    in the seed tables (plain gathers, as in the JAX package), or the whole
-    index when t_seed = 0."""
-    B = needles.shape[0]
-    P = sched.P
-    dev = needles.device
-    st = torch.zeros((5, B, Fp), dtype=torch.int32, device=dev)
-    st[4] = (torch.arange(Fp, dtype=torch.int32, device=dev) % P)[None, :]
-    valid = torch.zeros((B, Fp), dtype=torch.uint8, device=dev)
-    if t_seed == 0:
-        st[2, :, :P] = torch.tensor(n_total, dtype=torch.int64).to(torch.int32)
-        valid[:, :P] = 1
-        return st, valid
-    off = seed_level_offset(t_seed)
-    pw = torch.as_tensor(4 ** np.arange(t_seed - 1, -1, -1, dtype=np.int64),
-                         device=dev)
-    for p in range(P):
-        a_p = int(sched.pos_np[:t_seed, p].min())
-        w = needles[:, a_p : a_p + t_seed].to(torch.int64)  # [B, t_seed]
-        okw = (w < 4).all(dim=-1)
-        wc = w.clamp(max=3)
-        code = off + (wc * pw).sum(dim=-1)
-        rc_code = off + ((3 - wc) * pw.flip(0)).sum(dim=-1)
-        size = index.seed_size[code]
-        st[0, :, p] = index.seed_mlo[code]
-        st[1, :, p] = index.seed_mlo[rc_code]
-        st[2, :, p] = size
-        valid[:, p] = (okw & (size != 0)).to(torch.uint8)
-    return st, valid
+    in the seed tables (`kernels.seed_lookup`, one launch for all plans), or
+    the whole index when t_seed = 0."""
+    return kernels.seed_lookup(index, needles, sched.seed_pos(t_seed), t_seed, Fp,
+                               n_total)
 
 
 def seed_steps(index: DeviceIndex, sched: _InfixSchedule, T: int) -> int:
@@ -314,7 +310,7 @@ def seed_steps(index: DeviceIndex, sched: _InfixSchedule, T: int) -> int:
 
 def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
                   tier: Tier, n_total: int, exact_steps: int, pools,
-                  stop_at=None):
+                  stop_at=None, with_occ: bool = False):
     """All search schemes over one flat per-block state POOL.
 
     Every state carries its plan id.  On a fast tier the first
@@ -327,7 +323,11 @@ def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
     cut): survivor mass only shrinks as characters are consumed, so a mass
     that proves frequency 1 at a prefix proves it for the whole infix.
 
-    Returns ((st [5, B, F], valid [B, F]), ovf_cap [B], ovf_far [B]):
+    `with_occ` also returns each step's count of valid candidates per block
+    before the cut (occ [T, B] int32, the calibration signal; the seeded
+    steps read the starting pool's valid count).
+
+    Returns ((st [5, B, F], valid [B, F]), ovf_cap [B], ovf_far [B][, occ]):
     capacity overflow and far flags are reported separately so the engine
     can route far-only blocks to the same-size exact tier and capacity
     overflows to a wider tier."""
@@ -345,6 +345,9 @@ def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
     st, valid = initial_states(index, sched, needles, t_seed, Fp, n_total)
     ovf_cap = torch.zeros(B, dtype=torch.bool, device=dev)
     ovf_far = torch.zeros(B, dtype=torch.bool, device=dev)
+    occs = []
+    if with_occ and t_seed > 0:
+        occs.append(valid.sum(dim=-1, dtype=torch.int32)[None].expand(t_seed, B))
 
     Fcur = Fp
     for t in range(t_seed, T):
@@ -361,10 +364,13 @@ def _search_infix(index: DeviceIndex, sched: _InfixSchedule, needles, B: int,
             lreq=sched.lreq[t], exact=t < S,
         )
         A = out.shape[-1]
-        st, valid, of = _compact(out.view(5, B, F * A), valid2.view(B, F * A), F)
+        st, valid, of, *n = _compact(out.view(5, B, F * A), valid2.view(B, F * A), F,
+                                     with_occ)
         ovf_cap |= of
         ovf_far |= far.view(B, F).bool().any(dim=-1)
-    return (st, valid), ovf_cap, ovf_far
+        occs += [x[None] for x in n]
+    out = ((st, valid), ovf_cap, ovf_far)
+    return out + (torch.cat(occs),) if with_occ else out
 
 
 class _DimerSchedule:
@@ -425,6 +431,23 @@ class _DimerSchedule:
         self.kind = [(bool((consume[t] == 1).any()), bool((consume[t] == 0).any()))
                      for t in range(Tf)]
         self.Tf = Tf
+        # occupancy back in char space: char c reads the max over row 0 (the
+        # post-seed pool, for c < t_seed) and every fused step (row t + 1)
+        # whose consumed span covers c for any plan; an uncovered char reads
+        # row 0 (the inverse of the pools' derivation above)
+        cover = []
+        for c in range(T):
+            rows = [0] if c < t_seed else []
+            for t in range(Tf):
+                for p in range(P):
+                    c0, k = int(charidx[t, p]), int(consume[t, p])
+                    if k > 0 and c0 <= c < c0 + k:
+                        rows.append(t + 1)
+            cover.append(rows or [0])
+        width = max((len(r) for r in cover), default=1)
+        self.occ_cover = torch.as_tensor(
+            [r + [r[0]] * (width - len(r)) for r in cover], dtype=torch.int64,
+            device=dev).reshape(T, width)
 
         def tab(k, dtype):
             return torch.as_tensor(sched[k], dtype=dtype, device=dev)
@@ -436,18 +459,22 @@ class _DimerSchedule:
 
 
 def _search_infix_dimer(index: DeviceIndex, sched: _InfixSchedule,
-                        dsched: _DimerSchedule, needles, B: int, n_total: int):
+                        dsched: _DimerSchedule, needles, B: int, n_total: int,
+                        with_occ: bool = False):
     """The pooled infix scan of `_search_infix` on the dimer rank rows: the
     same seeded prefix and plan-id-carrying pool, then `dsched`'s fused
     steps (two chars per row read where a plan's run allows, 1-char and
     passthrough slots where it does not), the first ones exact while any
-    plan is in the exact prefix.  Returns ((st, valid), ovf_cap, ovf_far)
-    as `_search_infix` does; `far` also marks flagged sub-blocks."""
+    plan is in the exact prefix.  Returns ((st, valid), ovf_cap, ovf_far[,
+    occ]) as `_search_infix` does; `far` also marks flagged sub-blocks, and
+    the fused steps' counts are mapped back to char space
+    (`dsched.occ_cover`)."""
     dev = needles.device
     st, valid = initial_states(index, sched, needles, dsched.t_seed, dsched.F0,
                                n_total)
     ovf_cap = torch.zeros(B, dtype=torch.bool, device=dev)
     ovf_far = torch.zeros(B, dtype=torch.bool, device=dev)
+    occs = [valid.sum(dim=-1, dtype=torch.int32)[None]] if with_occ else []
     Fcur = dsched.F0
     for t in range(dsched.Tf):
         F = dsched.pools[t]
@@ -466,10 +493,14 @@ def _search_infix_dimer(index: DeviceIndex, sched: _InfixSchedule,
             exact=dsched.exact[t], with_mono=dsched.kind[t][0],
             with_pass=dsched.kind[t][1],
         )
-        st, valid, of = _compact(out.view(5, B, -1), valid2.view(B, -1), F)
+        st, valid, of, *n = _compact(out.view(5, B, -1), valid2.view(B, -1), F, with_occ)
         ovf_cap |= of
         ovf_far |= far.view(B, F).bool().any(dim=-1)
-    return (st, valid), ovf_cap, ovf_far
+        occs += [x[None] for x in n]
+    out = ((st, valid), ovf_cap, ovf_far)
+    if not with_occ:
+        return out
+    return out + (torch.cat(occs)[dsched.occ_cover].amax(dim=1),)
 
 
 def _balanced_schedule(n_right, n_left, pos_right, pos_left):
@@ -596,11 +627,14 @@ class _ExtensionLevel:
 
 
 def _ext_phase(index, st, valid, ovf_cap, ovf_far, needles, lv: _ExtensionLevel,
-               exact):
+               exact, with_occ: bool = False):
     """One mixed-direction extension scan over a [B, M, Fe] frontier; slots
     may move in different directions in the same step and inactive slots
-    pass through."""
+    pass through.  `with_occ` also returns, per block, the max over steps
+    and nodes of the candidate count before the cut ([B] int32, else
+    None)."""
     R, B, M, Fe = st.shape
+    occ = torch.zeros(B, dtype=torch.int32, device=st.device) if with_occ else None
     for t in range(lv.T):
         nch = needles.index_select(1, lv.pos[t])  # [B, M]
         # left- and right-moving nodes share one launch: both directions
@@ -611,21 +645,24 @@ def _ext_phase(index, st, valid, ovf_cap, ovf_far, needles, lv: _ExtensionLevel,
             lreq=lv.lreq, exact=exact,
         )
         A = out.shape[-1]
-        st, valid, of = _compact(out.view(R, B * M, Fe * A),
-                                 valid2.view(B * M, Fe * A), Fe)
+        st, valid, of, *n = _compact(out.view(R, B * M, Fe * A),
+                                     valid2.view(B * M, Fe * A), Fe, with_occ)
         st = st.view(R, B, M, Fe)
         valid = valid.view(B, M, Fe)
         ovf_cap = ovf_cap | of.view(B, M).any(dim=-1)
         ovf_far = ovf_far | far.view(B, M * Fe).bool().any(dim=-1)
-    return st, valid, ovf_cap, ovf_far
+        if with_occ:
+            occ = torch.maximum(occ, n[0].view(B, M).amax(dim=-1))
+    return st, valid, ovf_cap, ovf_far, occ
 
 
 def _ext_phase_fused(index, st, valid, ovf_cap, ovf_far, needles,
-                     lv: _ExtensionLevel, exact):
+                     lv: _ExtensionLevel, exact, with_occ: bool = False):
     """`_ext_phase` on the dimer rows: slots consume 2 chars per step within
     a run, 1 at its odd end, 0 once done (passthrough).  The extension's
     error bound is one cumulative cap, so the mid-pair check is implied."""
     R, B, M, Fe = st.shape
+    occ = torch.zeros(B, dtype=torch.int32, device=st.device) if with_occ else None
     for t in range(lv.T):
         out, valid2, far = kernels.dimer_step(
             index, st.view(R, -1), valid.view(-1), per_block=M * Fe, inner=Fe,
@@ -635,39 +672,65 @@ def _ext_phase_fused(index, st, valid, ovf_cap, ovf_far, needles,
             nchB=needles.index_select(1, lv.posB[t]), exact=exact,
             with_mono=lv.kind[t][0], with_pass=lv.kind[t][1],
         )
-        st, valid, of = _compact(out.view(R, B * M, -1), valid2.view(B * M, -1), Fe)
+        st, valid, of, *n = _compact(out.view(R, B * M, -1), valid2.view(B * M, -1),
+                                     Fe, with_occ)
         st = st.view(R, B, M, Fe)
         valid = valid.view(B, M, Fe)
         ovf_cap = ovf_cap | of.view(B, M).any(dim=-1)
         ovf_far = ovf_far | far.view(B, M * Fe).bool().any(dim=-1)
-    return st, valid, ovf_cap, ovf_far
+        if with_occ:
+            occ = torch.maximum(occ, n[0].view(B, M).amax(dim=-1))
+    return st, valid, ovf_cap, ovf_far, occ
 
 
-def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier):
+def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier,
+                     fe_sched=None, with_occ: bool = False):
     """Extend infix survivors to every k-mer window of each block along the
     doubling tree (`_tree_levels`): ~2·log2(J) extension steps per k-mer,
     left- and right-moving slots sharing each step.  A dimer tier runs the
     fused steps on the dimer rows (`ext_exact` still picks the rank mode: a
     forced exact dimer tier computes wide intervals instead of flagging).
 
-    Returns ((st [4, B, J, Fe], valid [B, J, Fe]), ovf_cap, ovf_far)."""
-    Fe = tier.f_extend
+    `fe_sched` ([levels + 1] ints) sets a frontier width per level (index
+    0: the root compaction), shrinking by compaction (overflow is a
+    capacity overflow) or growing by zero padding; default: f_extend
+    throughout.  `with_occ` also returns ext_occ [B, levels + 1] uint16:
+    the root's survivor count, then per level the max over its steps and
+    nodes of the candidate counts before the cut, or on a stepless level
+    the max over nodes of the carried valid count.
+
+    Returns ((st [4, B, J, Fe], valid [B, J, Fe]), ovf_cap, ovf_far[,
+    ext_occ])."""
     exact = tier.exact if tier.ext_exact is None else tier.ext_exact
+    if fe_sched is None:
+        fe_sched = [tier.f_extend] * (len(levels) + 1)
+    if len(fe_sched) != len(levels) + 1:
+        raise ValueError(f"fe_sched has {len(fe_sched)} widths for {len(levels)} levels")
     s_st, s_valid = survivors
     # compact survivors into the root slots (node covering [0, J))
-    st, valid, ovf_cap = _compact(s_st[:4], s_valid, Fe)
-    st = st.view(4, B, 1, Fe)
-    valid = valid.view(B, 1, Fe)
+    F0 = int(fe_sched[0])
+    st, valid, ovf_cap, *occs = _compact(s_st[:4], s_valid, F0, with_occ)
+    st = st.view(4, B, 1, F0)
+    valid = valid.view(B, 1, F0)
     ovf_far = torch.zeros(B, dtype=torch.bool, device=needles.device)
-    for lv in levels:
+    for li, lv in enumerate(levels):
         st = st.index_select(2, lv.pmap)
         valid = valid.index_select(1, lv.pmap)
+        st, valid, of = _resize(st, valid, int(fe_sched[li + 1]))
+        if of is not None:
+            ovf_cap = ovf_cap | of.any(dim=-1)
+        occ_l = None
         if lv.T:
             phase = _ext_phase_fused if tier.dimer else _ext_phase
-            st, valid, ovf_cap, ovf_far = phase(
-                index, st, valid, ovf_cap, ovf_far, needles, lv, exact
+            st, valid, ovf_cap, ovf_far, occ_l = phase(
+                index, st, valid, ovf_cap, ovf_far, needles, lv, exact, with_occ
             )
-    return (st, valid), ovf_cap, ovf_far
+        if with_occ:
+            if occ_l is None:  # stepless level: demand = the carried states
+                occ_l = valid.sum(dim=-1, dtype=torch.int32).amax(dim=-1)
+            occs.append(occ_l)
+    out = ((st, valid), ovf_cap, ovf_far)
+    return out + (_u16(torch.stack(occs, dim=1)),) if with_occ else out
 
 
 def _count_tail(index, states, cnt, J: int, cap: int, rev_compl: bool,
@@ -704,13 +767,24 @@ class BlockMapper:
     passes last=False and returns dict(acc=...), the running per-plan mass
     sum that the next part's call takes as `acc` (kernels.probe_mass).
     `probe_mass=True` (tests) adds mass_p [B, P] int32, nwin [B] uint8 and
-    overflow [B] uint8."""
+    overflow [B] uint8.
+
+    `pools` (per-step ints, char space on a dimer tier too) replaces the
+    static infix pool schedule with the engine's calibrated one.
+    `with_occ` adds occ [B, T] uint16 (each infix step's valid candidates
+    per block before the cut) and surv [B] uint16 (the infix survivors),
+    both clipped to 65535.  `collect_only=True` is the split pipeline's
+    phase A: the infix scan only, its survivors packed to the front of
+    their slots at the final pool's width Fc, returned as device tensors
+    st [4, B, Fc] int32 (flo, rlo, size, err) and valid [B, Fc], with
+    surv [B] uint16, overflow and overflow_cap."""
 
     def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
                  errors: int, overlap: int, J: int, B: int, tier: Tier,
                  cap: int, rev_compl: bool, with_exact: bool = False,
                  with_states: bool = False, probe: bool = False,
-                 probe_cut=None, probe_mass: bool = False):
+                 probe_cut=None, probe_mass: bool = False, pools=None,
+                 with_occ: bool = False, collect_only: bool = False):
         if overlap != K - J + 1:
             raise ValueError(f"overlap {overlap} != K - J + 1 = {K - J + 1}")
         if not 0 < cap <= 65535:
@@ -725,6 +799,7 @@ class BlockMapper:
         self.tier, self.cap, self.rev_compl = tier, cap, rev_compl
         self.with_exact, self.with_states = with_exact, with_states
         self.probe, self.probe_cut, self.probe_mass = probe, probe_cut, probe_mass
+        self.with_occ, self.collect_only = with_occ, collect_only
         self.Ln = K + J - 1
         plans = plans_for(errors, overlap)
         infix_off = K - overlap
@@ -732,8 +807,9 @@ class BlockMapper:
         # the dimer rows' fast window is 256 symbols: intervals must shrink
         # to ~16 before the fast steps start
         self.exact_steps = exact_prefix_steps(self.n_total, 16 if tier.dimer else 64)
-        self.pools = infix_pool_schedule(plans, infix_off, self.n_total,
-                                         tier.f_search / 4.0)
+        self.pools = (infix_pool_schedule(plans, infix_off, self.n_total,
+                                          tier.f_search / 4.0)
+                      if pools is None else np.asarray(pools, np.int64))
         self.sched = _InfixSchedule(plans, infix_off, dev)
         self.dsched = None
         if tier.dimer:
@@ -753,14 +829,16 @@ class BlockMapper:
         B = starts.shape[0]
         needles = extract_needles(self.dtext, starts, self.Ln, limit)
         if self.tier.dimer:
-            (s_st, s_valid), cap1, far1 = _search_infix_dimer(
+            (s_st, s_valid), cap1, far1, *occ = _search_infix_dimer(
                 self.index, self.sched, self.dsched, needles, B, self.n_total,
+                self.with_occ,
             )
         else:
-            (s_st, s_valid), cap1, far1 = _search_infix(
+            (s_st, s_valid), cap1, far1, *occ = _search_infix(
                 self.index, self.sched, needles, B, self.tier, self.n_total,
                 self.exact_steps, self.pools,
                 stop_at=self.probe_cut if self.probe else None,
+                with_occ=self.with_occ,
             )
         if self.probe:
             ovf = (cap1 | far1).to(torch.uint8)
@@ -773,6 +851,12 @@ class BlockMapper:
                 return dict(skip=res)
             skip, mass_p, nwin = res
             return dict(skip=skip, mass_p=mass_p, nwin=nwin, overflow=ovf)
+        if self.collect_only:
+            # phase A: survivors packed at native width (no overflow: they
+            # already fit it), the pack's count is the survivor count
+            st, valid, _, surv = _compact(s_st[:4], s_valid, s_st.shape[-1], count=True)
+            return dict(st=st, valid=valid, surv=_u16(surv),
+                        overflow=cap1 | far1, overflow_cap=cap1)
         states, cap2, far2 = _extend_to_kmers(
             self.index, (s_st, s_valid), needles, self.levels, B, self.tier
         )
@@ -790,4 +874,59 @@ class BlockMapper:
         if self.with_states:
             st, valid = states
             out["states"] = (st[0], st[2], st[3], valid)
+        if self.with_occ:
+            out["occ"] = _u16(occ[0].T)
+            out["surv"] = _u16(s_valid.sum(dim=-1, dtype=torch.int32))
+        return out
+
+
+class Extender:
+    """The split pipeline's phase B (port of `make_extender`, with the
+    engine's rung gather): gather rows of device-resident phase-A survivor
+    states into a batch at one extension rung Fe (`kernels.gather_states`),
+    extend them to every k-mer window of their blocks, and count.
+
+    The tier is Tier(4, max(4, Fe), Fe, exact=exact, dimer=dimer,
+    ext_exact=exact): `exact=False` runs the one-row fast rank path (far
+    flags re-run at the same rung on the exact path), `dimer` the fused
+    steps on the dimer rows.  `fe_sched` applies a measured per-level
+    frontier schedule (`_extend_to_kmers`); `with_occ` adds ext_occ [B,
+    levels + 1] uint16, the per-level demand that calibrates it.
+
+    Call with starts [B] int32 (uint32 global base positions of the batch's
+    blocks), cnt [B], limit, phase_a = (st [4, Bc, Fc] int32, valid [Bc,
+    Fc] uint8) of phase A (`BlockMapper(collect_only=True)`), and ridx [B]
+    int32: the phase-A row of each of the first n blocks (rows past n are
+    padding).  Returns dict(hits [B, J] uint16, overflow, overflow_cap[,
+    ext_occ])."""
+
+    def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
+                 errors: int, overlap: int, J: int, B: int, Fe: int, cap: int,
+                 rev_compl: bool, exact: bool, dimer: bool = False,
+                 fe_sched=None, with_occ: bool = False):
+        if overlap != K - J + 1:
+            raise ValueError(f"overlap {overlap} != K - J + 1 = {K - J + 1}")
+        if dimer and not index.has_dimer:
+            raise ValueError("dimer extension on an index part without dimer rows")
+        self.index, self.dtext = index, dtext
+        self.J, self.B, self.Fe, self.cap, self.rev_compl = J, B, Fe, cap, rev_compl
+        self.tier = Tier(4, max(4, Fe), Fe, exact=exact, dimer=dimer, ext_exact=exact)
+        self.fe_sched = None if fe_sched is None else tuple(int(x) for x in fe_sched)
+        self.with_occ = with_occ
+        self.Ln = K + J - 1
+        self.levels = [_ExtensionLevel(lv, errors, index.device, dimer)
+                       for lv in _tree_levels(J, K)]
+
+    def __call__(self, starts, cnt, limit, phase_a, ridx, n: int):
+        B = starts.shape[0]
+        states = kernels.gather_states(phase_a[0], phase_a[1], ridx, n, self.Fe)
+        needles = extract_needles(self.dtext, starts, self.Ln, limit)
+        final, cap2, far2, *occ = _extend_to_kmers(
+            self.index, states, needles, self.levels, B, self.tier,
+            self.fe_sched, self.with_occ,
+        )
+        hits = _count_tail(self.index, final, cnt, self.J, self.cap, self.rev_compl)
+        out = dict(hits=hits, overflow=cap2 | far2, overflow_cap=cap2)
+        if self.with_occ:
+            out["ext_occ"] = occ[0]
         return out

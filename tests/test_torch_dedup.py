@@ -45,6 +45,8 @@ def test_dedup_matches_normal_and_jax(ke, monkeypatch):
     params = SearchParams(length=K, overlap=o, rev_compl=True)
     eng_d = MappabilityEngine(data, batch_blocks=256, device="cpu")
     eng_n = MappabilityEngine(data, batch_blocks=256, dedup=False, device="cpu")
+    for eng in (eng_d, eng_n):  # like for like with the JAX engine below
+        eng._calibrate_enabled = False
     rd = eng_d.compute_file(eng_d.layouts[0], params, e, 255)
     assert ran == [True]
     rn = eng_n.compute_file(eng_n.layouts[0], params, e, 255)

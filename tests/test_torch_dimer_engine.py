@@ -64,6 +64,7 @@ def _both(data, mode, K, e, o, cap=65535, rev_compl=True, csv=False):
     """(port engine, its result, JAX engine, its result) of one compute."""
     eng = MappabilityEngine(data, batch_blocks=512, dedup=False, device="cpu",
                             dimer_tier=mode, light=not csv)
+    eng._calibrate_enabled = False  # like for like with the JAX engine below
     got = eng.compute_file(eng.layouts[0], SearchParams(K, o, rev_compl), e, cap,
                            csv=csv)
     jeng = JaxEngine(data, batch_blocks=512, dedup=False, dimer_tier=mode,
@@ -153,6 +154,7 @@ def test_probe_on_forced_dimer_tier0_with_cut():
                                 dimer_tier=True)
         eng._probe_cut_slack = 3
         eng._probe_enabled = probe
+        eng._calibrate_enabled = False  # like for like with the JAX engine
         res[probe] = eng.compute_file(eng.layouts[0], SearchParams(K, o), e, 65535).c
         if probe:
             skipped = eng.stats["probe_skipped"]
@@ -204,13 +206,15 @@ def test_twin_ladder_rescue_matches_oracle(monkeypatch):
     orig = MappabilityEngine._run_blocks
     calls = []
 
-    def spy(self, job, tier, ids, B, t_i, progress):
-        far, cap = orig(self, job, tier, ids, B, t_i, progress)
+    def spy(self, job, tier, ids, B, t_i, progress, pools_list=None):
+        far, cap = orig(self, job, tier, ids, B, t_i, progress, pools_list)
         calls.append((tier, t_i, len(ids), len(far) + len(cap)))
         return far, cap
 
     monkeypatch.setattr(MappabilityEngine, "_run_blocks", spy)
-    K, e, o = 64, 2, 33
+    # J = 15: below the split pipeline's J >= 16 gate, so the residual
+    # cohort runs the fused per-tier program this rescue path belongs to
+    K, e, o = 64, 2, 50
     res = eng.compute_file(eng.layouts[0], SearchParams(K, o), e, 65535)
     ladder = eng.stats["tiers"]
     assert [(t.f_search, t.dimer) for t in ladder] == [(4, True), (256, True), (256, False)]

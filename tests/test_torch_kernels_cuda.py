@@ -358,3 +358,99 @@ def test_engine_multipart_dimer_cuda_equals_cpu(cuda):
         c = ce.compute_file(ce.layouts[0], params, e, 255)
         np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e}")
         assert ge.stats["dimer_tier"] and ge.stats["tier_blocks"] == ce.stats["tier_blocks"]
+
+
+@pytest.mark.parametrize("R,rows,M,F", [
+    (5, 300, 16, 4), (4, 300, 16, 1), (5, 50, 256, 64), (4, 20, 1000, 300),
+])
+def test_compact_count(cuda, R, rows, M, F):
+    """The valid count before the cut (the occupancy and survivor counts)."""
+    rng = np.random.default_rng(7 * rows + M + F)
+    arr = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, rows, M)).astype(np.int32))
+    valid = torch.from_numpy((rng.random((rows, M)) < rng.random((rows, 1))).astype(np.uint8))
+    ref = kernels.compact(arr, valid, F, count=True)
+    got = kernels.compact(arr.to(cuda), valid.to(cuda), F, count=True)
+    torch.cuda.synchronize()
+    assert len(got) == 4
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    _eq(ref[3], valid.sum(-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_seed_lookup(cuda, alpha):
+    data, gi, ci = _indexes(alpha, cuda)
+    assert gi.has_seed
+    rng = np.random.default_rng(50 + alpha)
+    B, Ln, P = 500, 60, 3
+    needles = rng.integers(0, 4, (B, Ln))
+    needles[rng.random((B, Ln)) < 0.01] = 4
+    needles = torch.from_numpy(needles.astype(np.uint8))
+    for t_seed in (0, 1, ci.seed_t0):
+        a_pos = torch.from_numpy(rng.integers(0, Ln - max(1, t_seed), P).astype(np.int32))
+        for Fp in (P, 16):
+            ref = kernels.seed_lookup(ci, needles, a_pos, t_seed, Fp, ci.n_total)
+            got = kernels.seed_lookup(gi, needles.to(cuda), a_pos.to(cuda), t_seed, Fp,
+                                      gi.n_total)
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                _eq(a, b)
+            assert ref[1][:, :P].any()
+
+
+@pytest.mark.parametrize("Fc,Fe", [(64, 16), (16, 64), (32, 32)])
+def test_gather_states(cuda, Fc, Fe):
+    rng = np.random.default_rng(Fc + 3 * Fe)
+    B = 200
+    st = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (4, B, Fc)).astype(np.int32))
+    valid = torch.from_numpy((rng.random((B, Fc)) < 0.5).astype(np.uint8))
+    for n, npad in ((37, 64), (64, 64), (1, 2)):
+        ridx = np.zeros(npad, np.int32)
+        ridx[:n] = rng.integers(0, B, n)
+        ridx = torch.from_numpy(ridx)
+        ref = kernels.gather_states(st, valid, ridx, n, Fe)
+        got = kernels.gather_states(st.to(cuda), valid.to(cuda), ridx.to(cuda), n, Fe)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _eq(a, b)
+
+
+def test_engine_split_cuda_equals_cpu(cuda):
+    """Calibration and the split pipeline (J >= 16, one part), with the
+    dimer mode ladder forced: frequencies, blocks per tier, calibrated pools
+    and extension schedules equal the CPU's."""
+    rng = np.random.default_rng(5)
+    unit = rng.integers(0, 4, 150, dtype=np.uint8)
+    copies = []
+    for _ in range(200):
+        u = unit.copy()
+        m = rng.random(150) < 0.02
+        u[m] = rng.integers(0, 4, int(m.sum()))
+        copies.append(u)
+    seq = np.concatenate([rng.integers(0, 4, 6000, dtype=np.uint8)] + copies
+                         + [rng.integers(0, 4, 3000, dtype=np.uint8)])
+    seq[rng.integers(0, len(seq) - 30, 6)[:, None] + np.arange(20)] = 4
+    ff = FastaFile(name="g.fa")
+    ff.seqs, ff.ids = [seq], ["s0"]
+    data = build_index([ff], sampling=4)
+    for dimer in (None, True):
+        engs = []
+        for dev in (cuda, "cpu"):
+            eng = MappabilityEngine(data, batch_blocks=1024, device=dev, dimer_tier=dimer)
+            eng._cal_batch = 96
+            eng._record_tier_sel = True
+            engs.append(eng)
+        ge, ce = engs
+        for K, e, o in ((30, 1, 15), (40, 2, 20)):
+            params = SearchParams(length=K, overlap=o)
+            kernels.reset_launches()
+            g = ge.compute_file(ge.layouts[0], params, e, 65535)
+            counts = kernels.launch_counts()
+            c = ce.compute_file(ce.layouts[0], params, e, 65535)
+            np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e} dimer={dimer}")
+            assert counts["gather_states"] > 0 and counts["seed_lookup"] > 0, counts
+            assert ge.stats["tier_blocks"] == ce.stats["tier_blocks"]
+            assert ({k: sum(map(len, v)) for k, v in ge.stats["rung_sel"].items()}
+                    == {k: sum(map(len, v)) for k, v in ce.stats["rung_sel"].items()})
+        assert ge._tuned_pools == ce._tuned_pools and ge._tuned_pools
+        assert ge._ext_sched == ce._ext_sched

@@ -78,6 +78,7 @@ def test_multipart_probe_matches_jax(monkeypatch):
     for probe in (True, False):
         eng = MappabilityEngine(split, batch_blocks=1024, dedup=False, device="cpu")
         eng._probe_enabled = probe
+        eng._calibrate_enabled = False  # like for like with the JAX engine
         res[probe] = (eng.compute_file(eng.layouts[0], SearchParams(K, O), E, 65535).c,
                       eng.stats["probe_skipped"])
     jeng = JaxEngine(split, batch_blocks=1024, dedup=False)

@@ -103,6 +103,7 @@ def _map_port(data, cap):
     for probe in (True, False):
         eng = MappabilityEngine(data, batch_blocks=1024, dedup=False, device="cpu")
         eng._probe_enabled = probe
+        eng._calibrate_enabled = False  # like for like with the JAX engine
         res.append((eng.compute_file(eng.layouts[0], params, E, cap).c,
                     eng.stats["probe_skipped"]))
     return res
