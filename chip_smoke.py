@@ -50,8 +50,8 @@ or of the JAX package.  Phases (any failure exits non-zero):
   5. csv     `map -d` of all of chrI on the card (counters reset before and
              read after; locate must launch): its frequencies must equal
              the main path's on chrI; located rows/s is logged
-  6. dedup   chrI-chrVII followed by a second copy of them in one file
-             (~9.7 Mbp, duplicate rate 0.5, given to the engine's dedup gate,
+  6. dedup   chrI-chrIV followed by a second copy of them in one file
+             (~5.8 Mbp, duplicate rate 0.5, given to the engine's dedup gate,
              whose sampled estimate cannot see two-copy duplication at this
              size), mapped at (100,2) and (24,1) through MappabilityEngine
              with dedup on and off: frequencies equal, the dedup pass taken
@@ -69,7 +69,24 @@ or of the JAX package.  Phases (any failure exits non-zero):
              included), frequencies equal; `map -d` of a >= 10,000-k-mer
              selection on the split index on the card and on the CPU, and on
              the whole index on the card: all output files byte-equal
-  9. kernels the largest checked call of each kernel (and of each
+  9. mesh1   a NCCL world of one rank (this process, cuda:0): the main
+             genome mapped through `map_main(mesh=...)` on data_mesh(1) and
+             on part_data_mesh(1, 1) at (100,2) and (24,1) (the fused
+             ladder: the split gate is off under a mesh), each counted
+             twice (k-mers/s, collectives, their bytes and host time), the
+             (100,2) maps profiled (NCCL device time), the part mesh's
+             (100,2) first batches checked (its part mapper, prober and
+             reduced probe_mass); frequencies equal to the single-GPU
+             maps'
+ 10. mesh4   four ranks spawned on cuda:0 over gloo: dryrun_multichip(4);
+             chrI-chrVII in two parts (-xm) on part(2) x data(2) at
+             (100,2) and (24,1) and the multipart phase's -d selection,
+             and data(4) on its 3-part index: output files byte-equal to
+             the single-GPU runs'; rank 0's first batch of every program
+             held against the plain versions (the reduced probe_mass entry
+             included); part(2) x data(1) over NCCL where the machine has
+             two cards
+ 11. kernels the largest checked call of each kernel (and of each
              dimer_step variant) is timed on the card (kernel, plain
              version, library call where one exists) beside its bound
 
@@ -112,7 +129,7 @@ NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
 MAIN_NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
               "probe_mass", "dimer_step", "seed_lookup", "gather_states")
 EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
-DEDUP_CHROMS = 7  # chrI-chrVII
+DEDUP_CHROMS = 4  # chrI-chrIV
 MP_CHROMS = 7  # chrI-chrVII, the multi-part phase's genome
 MP_XM = 4_000_000  # its -xm cap in symbols (both strands): three parts
 MP_SEL = 10_000  # k-mers of its -d selection
@@ -298,6 +315,8 @@ def timing_keys(name, args) -> list:
     dimer_step variant."""
     if name == "count_tail" and args.get("with_exact"):
         return ["count_tail+exact"]
+    if name == "probe_mass" and args["st"] is None:
+        return ["probe_mass+reduced"]
     if name == "compact" and args.get("count"):
         return [name, "compact+count"]
     if name == "dimer_step":  # A, rank mode, mono steps, passthrough slots
@@ -320,6 +339,9 @@ def variant(name, args) -> str:
                 f"A={args['index'].nchars}")
     if name == "gather_states":
         return f"Fc={args['st'].shape[2]} Fe={args['Fe']}"
+    if name == "probe_mass" and args["st"] is None:
+        return (f"reduced P={args['thr'].numel()} "
+                f"mass={bool(args.get('with_mass'))}")
     if name == "probe_mass":
         return (f"F={args['st'].shape[2]} P={args['thr'].numel()} "
                 f"N-window={args['has_n']} mass={bool(args.get('with_mass'))} "
@@ -409,6 +431,11 @@ def kernel_work(name, args):
         nbytes = npad * 4 + npad * min(Fc, Fe) * 17 + npad * Fe * 17
         nops = 4 * npad * Fe
         return nbytes, nops, f"npad={npad} (n={args['n']}) Fc={Fc} Fe={Fe}", 0
+    if name == "probe_mass" and args["st"] is None:
+        # the summed accumulator read, the skip bytes (and masses) written
+        Bp, P = args["acc"].shape[0], args["thr"].numel()
+        nbytes = 8 * Bp * (P + 1) + 4 * P + Bp + (4 * P * Bp if args.get("with_mass") else 0)
+        return nbytes, 3 * Bp * (P + 1), f"B={Bp} P={P} (reduced)", 0
     if name == "probe_mass":
         st, valid = args["st"], args["valid"]
         _R, Bp, F = st.shape
@@ -530,6 +557,8 @@ def library_fn(name, args):
     """One PyTorch call computing the same function, where there is one."""
     import torch
 
+    if name == "probe_mass" and args["st"] is None:
+        return None
     if name == "probe_mass":  # per-plan mass: one scatter_add over plan ids
         st = args["st"]
         P = args["thr"].numel()
@@ -883,16 +912,17 @@ def ladder_str(tiers) -> str:
                     f"{'x' if t.exact else ''}" for i, t in enumerate(tiers))
 
 
-def counted_map(argv, report=None):
-    """`genmap-tpu-torch map argv` with the launch counters set to 0 just
-    before and read just after; returns the counts."""
+def counted_map(argv, report=None, mesh=None):
+    """`genmap-tpu-torch map argv` (on `mesh` where given) with the launch
+    counters set to 0 just before and read just after; returns the
+    counts."""
     import torch
 
     from genmap_tpu_torch import kernels
     from genmap_tpu_torch.cli.map_cmd import map_main
 
     kernels.reset_launches()
-    rc = map_main(argv, report=report)
+    rc = map_main(argv, report=report, mesh=mesh)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     if rc != 0:
@@ -980,11 +1010,13 @@ def main_path(dev, work, checker):
     data = FMIndexData.load(idx)
     log(f"main: dimer flagged sub-block fraction {data.parts[0].dimer_flag_frac:.6f}; "
         f"dimer tier 0 {st['dimer_tier']}; ladder {ladder_str(st['tiers'])}")
+    short, short_freq = short_map(idx, work, checker)
     summary = dict(kmers_per_s_median=float(np.median(runs)), kmers_per_s_runs=runs,
                    n_kmers=report["n_kmers"], resident_bytes=report["resident_bytes"],
                    probe_skipped=st["probe_skipped"], tier_blocks=st["tier_blocks"],
-                   map_24_1=short_map(idx, work, checker))
-    return launches, summary, idx, chroms, gpu_freq
+                   map_24_1=short)
+    ref = {(K, E): (gpu_freq, launches), (24, 1): (short_freq, short["launches"])}
+    return launches, summary, idx, chroms, gpu_freq, ref
 
 
 def short_map(idx, work, checker):
@@ -1024,7 +1056,7 @@ def short_map(idx, work, checker):
         raise AssertionError("the (24,1) map did not run tier 0 on the dimer rows")
     if not np.array_equal(freq, checked):
         raise AssertionError("(24,1) counted run's frequencies differ from the checked run's")
-    return dict(kmers_per_s=kps, tier_blocks=st["tier_blocks"], launches=counts)
+    return dict(kmers_per_s=kps, tier_blocks=st["tier_blocks"], launches=counts), freq
 
 
 def check_phase(work, idx, chroms, gpu_freq, checker):
@@ -1045,10 +1077,10 @@ def check_phase(work, idx, chroms, gpu_freq, checker):
     trees = {}
     build = rank.with_seed_tables
 
-    def seed_tables(index):  # checked, but not kept for timing: not a batch call
+    def seed_tables(index, t0=None):  # checked, not kept for timing: not a batch call
         checker.keep = False
         try:
-            return build(index)
+            return build(index, t0)
         finally:
             checker.keep = True
 
@@ -1153,7 +1185,7 @@ def csv_phase(work, idx, chroms, gpu_freq):
 
 
 def dedup_phase(dev, checker):
-    """Phase 6: chrI-chrVII twice in one file, dedup on against off."""
+    """Phase 6: chrI-chrIV twice in one file, dedup on against off."""
     from genmap_tpu_torch.cli.map_cmd import default_overlap
     from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
     from genmap_tpu_torch.index.build import build_index
@@ -1167,7 +1199,7 @@ def dedup_phase(dev, checker):
     ff.seqs = [c for _, c in chroms] * 2
     t = time.perf_counter()
     data = build_index([ff], sampling=10)
-    log(f"dedup: {data.text_len} bp index (chrI-chrVII twice) built in "
+    log(f"dedup: {data.text_len} bp index (chrI-chrIV twice) built in "
         f"{time.perf_counter() - t:.2f} s")
     orig = MappabilityEngine._compute_with_dedup
     taken = []
@@ -1317,7 +1349,7 @@ def multipart_phase(work, checker):
     def freq_of(out):
         return np.fromfile(os.path.join(out, "mp.genmap.freq16"), dtype="<u2")
 
-    out = {}
+    out, whole = {}, {}
     for k, e in ((K, E), (24, 1)):
         freqs = {}
         for name in ("whole", "split"):
@@ -1344,6 +1376,7 @@ def multipart_phase(work, checker):
         if bad or freqs["whole"].shape[0] != sum(len(c) for _, c in chroms):
             raise AssertionError(f"multipart ({k},{e}): whole and split differ")
         out[f"{k},{e}"] = dict(mismatches=bad)
+        whole[(k, e)] = read_tree(os.path.join(work, f"mp_whole_{k}_{e}"))
     acc_calls = [v for v in checker.variants["probe_mass"] if "acc=True" in v]
     if not acc_calls:
         raise AssertionError("no probe_mass accumulate call was checked")
@@ -1382,7 +1415,278 @@ def multipart_phase(work, checker):
     if csv.count("\n") < 2 * len(chroms) * per or nk <= 0:
         raise AssertionError("-d selection: too few CSV rows")
     out["selection_kmers"] = 2 * len(chroms) * per
-    return out
+    # the single-GPU outputs the mesh phase compares with
+    refs = dict(fa=fa, split=idx["split"], bed=bed, trees=whole,
+                sel=trees[("whole", "cuda")])
+    return out, refs
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: the map on rank meshes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_XM = 6_000_000  # -xm of the mesh phase: chrI-chrVII in exactly two parts
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
+
+
+def timed_collectives(run):
+    """run() with the host time inside every torch.distributed collective
+    call summed (perf_counter around each call); returns (run's result,
+    host ms)."""
+    import torch.distributed as dist
+
+    host, orig = [0.0], {}
+    for name in COLLECTIVES:
+        fn = orig[name] = getattr(dist, name)
+
+        def timed(*a, _fn=fn, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                host[0] += time.perf_counter() - t
+
+        setattr(dist, name, timed)
+    try:
+        return run(), host[0] * 1e3
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+
+
+def nccl_device_ms(run):
+    """run() under torch.profiler; returns the device time of the NCCL
+    kernels in its trace (None when it holds none) and their count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev, n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "nccl" in ev.key.lower():
+            dev += (getattr(ev, "self_device_time_total", 0)
+                    or getattr(ev, "self_cuda_time_total", 0)) / 1e3
+            n += ev.count
+    return (dev if n else None), n
+
+
+def mesh_map(idx, out, k, e, mesh, extra=(), report=None):
+    """`map -K k -E e` of `idx` on `mesh` through map_main, counted."""
+    os.makedirs(out, exist_ok=True)
+    return counted_map(["-I", idx, "-O", out + "/", "-K", str(k), "-E", str(e), "-fl",
+                        "-r", *extra, "--device", "cuda"], report=report, mesh=mesh)
+
+
+def mesh1_phase(work, idx, ref, checker):
+    """Phase 9: data_mesh(1) and part_data_mesh(1, 1) maps of the main
+    genome in a NCCL world of one rank (this process, cuda:0): a counted
+    run (k-mers/s, collectives, host time in their calls), at (100,2) a
+    profiled run (NCCL device time), and a second counted run; the part
+    mesh's (100,2) map first with its first batches checked; frequencies
+    equal to the single-GPU maps'."""
+    import torch.distributed as dist
+
+    from genmap_tpu_torch.parallel.mesh import data_mesh
+    from genmap_tpu_torch.parallel.partmesh import part_data_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "mesh1"), 1),
+                            rank=0, world_size=1)
+    res = {}
+    try:
+        for kind, make in (("data(1)", data_mesh), ("part(1) x data(1)",
+                                                    lambda n: part_data_mesh(1, n))):
+            for (k, e), (want, ref_counts) in ref.items():
+                mesh = make(1)
+                what = f"mesh1 {kind} ({k},{e})"
+                t = time.perf_counter()
+                checked = 0
+                if kind.startswith("part") and k == K:
+                    # the programs only a mesh runs: the part mapper's
+                    # merges, the part prober and its reduced decision
+                    with first_batches_checked(checker, what) as fb:
+                        mesh_map(idx, os.path.join(work, f"m1c_{kind[:4]}_{k}"), k, e,
+                                 mesh)
+                    checked = len(fb.seen)
+                t_check = time.perf_counter() - t
+                c0, b0 = mesh.collectives, mesh.wire_bytes
+                report = {}
+                out = os.path.join(work, f"m1_{kind[:4]}_{k}")
+                counts, host_ms = timed_collectives(
+                    lambda: mesh_map(idx, out, k, e, mesh, report=report))
+                st = report["stats"]
+                ncoll, nbytes = mesh.collectives - c0, mesh.wire_bytes - b0
+                t = time.perf_counter()
+                coll_ms, n_nccl = None, 0
+                if k == K:  # the profiler costs 30-50 s a map: (100,2) only
+                    coll_ms, n_nccl = nccl_device_ms(lambda: mesh_map(
+                        idx, os.path.join(work, f"m1t_{kind[:4]}_{k}"), k, e, mesh))
+                t_prof = time.perf_counter() - t
+                report2 = {}
+                mesh_map(idx, os.path.join(work, f"m1r_{kind[:4]}_{k}"), k, e, mesh,
+                         report=report2)
+                kps2 = report2["n_kmers"] / report2["compute_s"]
+                freq = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+                bad = int((freq != want).sum()) if freq.shape == want.shape else -1
+                kps = report["n_kmers"] / report["compute_s"]
+                need = [n for n in MAIN_NAMES if ref_counts[n] > 0 and n != "gather_states"]
+                missing = [n for n in need if counts[n] <= 0]
+                bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+                log(f"mesh1: {kind} ({k},{e}): {bad} frequency mismatches against the "
+                    f"single-GPU map; {kps:.1f} k-mers/s ({report['compute_s']:.2f} s "
+                    f"compute); {st['batches']} batches, {ncoll} collectives "
+                    f"({ncoll / max(1, st['batches']):.2f} per batch), {nbytes} B in and "
+                    f"out of them ({nbytes / max(1, st['batches']):.0f} B per batch), "
+                    f"host time in the collective calls {host_ms:.1f} ms; in a profiled "
+                    f"map {n_nccl} NCCL kernels, device time "
+                    f"{'not measured' if coll_ms is None else f'{coll_ms:.4f} ms'} (bound "
+                    f"{bound_ms:.5f} ms by bytes); a second counted run {kps2:.1f} k-mers/s; "
+                    f"{checked} batch programs checked ({t_check:.1f} s), profiled run "
+                    f"{t_prof:.1f} s; "
+                    f"blocks per tier {st['tier_blocks']}, probe skipped "
+                    f"{st['probe_skipped']}, ladder {ladder_str(st['tiers'])}, "
+                    f"split pipeline {st['phase_a_batches']} phase-A batches; "
+                    f"launches {counts}")
+                if bad or missing:
+                    raise AssertionError(f"{what}: {bad} mismatches, kernels not "
+                                         f"launched {missing}")
+                res[f"{kind} {k},{e}"] = dict(
+                    kmers_per_s=[kps, kps2], mismatches=bad, batches=st["batches"],
+                    collectives=ncoll, wire_bytes=nbytes, collective_ms=coll_ms,
+                    collective_host_ms=host_ms, nccl_kernels=n_nccl,
+                    bound_ms=bound_ms, launches=sum(counts.values()))
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def mesh4_rank(work, refs):
+    """One rank of phase 10 (four ranks on one card over gloo)."""
+    import torch.distributed as dist
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.parallel.dryrun import dryrun_multichip
+    from genmap_tpu_torch.parallel.mesh import data_mesh
+    from genmap_tpu_torch.parallel.partmesh import part_data_mesh
+
+    r = dist.get_rank()
+    res = {"dryrun": dryrun_multichip(4, "cuda")}
+    runs = []
+    two = os.path.join(work, "mesh_two")
+    jobs = [(f"part(2) x data(2) ({k},{e})", part_data_mesh(2, 4), two, k, e, ())
+            for k, e in ((K, E), (24, 1))]
+    jobs.append(("part(2) x data(2) -d selection", part_data_mesh(2, 4), two, K, E,
+                 ("-d", "-S", refs["bed"])))
+    jobs.append((f"data(4) on the 3-part index ({K},{E})", data_mesh(4), refs["split"],
+                 K, E, ()))
+    checker = _Checker(kernels)
+    with checker:
+        for what, mesh, idx, k, e, extra in jobs:
+            out = os.path.join(work, "mesh4_" + "".join(c for c in what if c.isalnum()))
+            report = {}
+            t = time.perf_counter()
+            c0 = mesh.collectives
+            if r == 0:  # rank 0's first batch of every program against plain
+                with first_batches_checked(checker, f"mesh4 {what}"):
+                    counts = mesh_map(idx, out, k, e, mesh, extra, report)
+            else:
+                counts = mesh_map(idx, out, k, e, mesh, extra, report)
+            runs.append(dict(what=what, out=out, wall=time.perf_counter() - t,
+                             compute_s=report["compute_s"], n_kmers=report["n_kmers"],
+                             stats={x: report["stats"][x] for x in
+                                    ("batches", "probe_skipped", "tier_blocks",
+                                     "max_tier")},
+                             collectives=mesh.collectives - c0, launches=counts))
+    res["runs"] = runs
+    res["checked"] = dict(calls=checker.calls, err=checker.err,
+                          variants={n: sorted(v) for n, v in checker.variants.items()})
+    return res
+
+
+def nccl2_rank(idx, out):
+    """part(2) x data(1) over NCCL, one rank per card."""
+    from genmap_tpu_torch.parallel.partmesh import part_data_mesh
+
+    mesh_map(idx, out, K, E, part_data_mesh(2, 2))
+
+
+def mesh4_phase(work, refs):
+    """Phase 10: four ranks on cuda:0 over gloo (each spawned process binds
+    cuda:0): dryrun_multichip(4); chrI-chrVII in two parts (-xm) on
+    part(2) x data(2) at (100,2), (24,1) and the multipart phase's -d
+    selection, and data(4) on its 3-part index at (100,2): every output
+    file byte-equal to the single-GPU run's; rank 0's first batch of each
+    program checked against the plain versions.  With two or more cards,
+    part(2) x data(1) over NCCL too."""
+    import torch
+
+    from genmap_tpu_torch.cli.main import main as cli_main
+    from genmap_tpu_torch.index.fmindex import FMIndexData
+    from genmap_tpu_torch.parallel.dist import launch_local
+
+    two = os.path.join(work, "mesh_two")
+    if cli_main(["index", "-F", refs["fa"], "-I", two, "-xm", str(MESH_XM)]) != 0:
+        raise AssertionError("genmap-tpu-torch index -xm (two parts) failed")
+    parts = FMIndexData.load(two).parts
+    if len(parts) != 2:
+        raise AssertionError(f"-xm {MESH_XM} gave {len(parts)} parts, not 2")
+    log(f"mesh4: two-part index of {[p.n_total for p in parts]} symbols")
+    t = time.perf_counter()
+    ranks = launch_local(4, mesh4_rank, work, refs, device="cuda",
+                         backend="gloo", store_dir=work, timeout_s=900)
+    log(f"mesh4: four ranks on cuda:0 over gloo done in {time.perf_counter() - t:.1f} s")
+    for line in ranks[0]["dryrun"]["lines"]:
+        log(f"mesh4: {line}")
+    if any(r["dryrun"]["lines"] != ranks[0]["dryrun"]["lines"] for r in ranks):
+        raise AssertionError("dryrun_multichip(4): ranks disagree")
+    ref_trees = refs["trees"]
+    res = {"dryrun": ranks[0]["dryrun"]["lines"]}
+    for run in ranks[0]["runs"]:
+        what = run["what"]
+        got = read_tree(run["out"])
+        want = (refs["sel"] if "selection" in what else
+                ref_trees[(24, 1)] if "(24,1)" in what else ref_trees[(K, E)])
+        same = sorted(fn for fn in want if want[fn] == got.get(fn))
+        kps = run["n_kmers"] / run["compute_s"]
+        log(f"mesh4: {what}: {run['compute_s']:.2f} s compute ({kps:.1f} k-mers/s, "
+            f"{run['wall']:.2f} s wall on rank 0), stats {run['stats']}, "
+            f"{run['collectives']} collectives; files {sorted(got)} byte-equal to the "
+            f"single-GPU run's: {same}; rank 0 launches {run['launches']}")
+        if sorted(got) != sorted(want) or len(same) != len(want):
+            raise AssertionError(f"mesh4 {what}: output files differ from the single GPU's")
+        need = ["extract_needles", "candidate_step", "compact", "count_tail", "seed_lookup"]
+        need += (["locate"] if "selection" in what else
+                 ["probe_mass"] if f"({K},{E})" in what else [])
+        missing = [n for n in need if run["launches"][n] <= 0]
+        if missing:
+            raise AssertionError(f"mesh4 {what}: kernels not launched on rank 0: {missing}")
+        res[what] = dict(kmers_per_s=kps, mismatched_files=len(want) - len(same),
+                         collectives=run["collectives"])
+    ch = ranks[0]["checked"]
+    log(f"mesh4: rank 0 kernel calls equal to plain {ch['calls']} (variants of "
+        f"probe_mass: {ch['variants']['probe_mass']})")
+    if any(ch["err"].values()) or not any("reduced" in v for v in
+                                          ch["variants"]["probe_mass"]):
+        raise AssertionError("mesh4: no reduced probe_mass call was checked")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out = os.path.join(work, "mesh_nccl2")
+        launch_local(2, nccl2_rank, two, out, device="cuda", backend="nccl",
+                     store_dir=work, timeout_s=600)
+        tree = read_tree(out)
+        ok = tree.get("mp.genmap.freq16") == ref_trees[(K, E)]["mp.genmap.freq16"]
+        log(f"mesh: part(2) x data(1) over NCCL on {n_cards} cards: frequencies "
+            f"byte-equal {ok}")
+        if not ok:
+            raise AssertionError("part(2) x data(1) over NCCL differs")
+        res["nccl2"] = True
+    else:
+        log("mesh: part(2) x data(1) over NCCL not run: this machine has "
+            f"{n_cards} CUDA device(s)")
+        res["nccl2"] = False
+    return res
 
 
 def main() -> int:
@@ -1425,15 +1729,18 @@ def main() -> int:
     with _Checker(kernels) as checker:
         phase("dna5", dna5_phase, dev, checker)
         with tempfile.TemporaryDirectory(prefix="genmap_smoke_") as work:
-            launches, summary["main"], idx, chroms, gpu_freq = phase(
+            launches, summary["main"], idx, chroms, gpu_freq, ref = phase(
                 "main", main_path, dev, work, checker)
+            summary["mesh1"] = phase("mesh1", mesh1_phase, work, idx, ref, checker)
             summary["check"] = phase("check", check_phase, work, idx, chroms,
                                      gpu_freq, checker)
             csv_counts, summary["csv"] = phase("csv", csv_phase, work, idx, chroms,
                                                gpu_freq)
             summary["dedup"] = phase("dedup", dedup_phase, dev, checker)
             summary["ep"] = phase("ep", ep_phase, work)
-            summary["multipart"] = phase("multipart", multipart_phase, work, checker)
+            summary["multipart"], refs = phase("multipart", multipart_phase, work,
+                                               checker)
+            summary["mesh4"] = phase("mesh4", mesh4_phase, work, refs)
             # launches: the whole-genome map's, and locate's from the -d map of chrI
             launches = dict(launches, locate=csv_counts["locate"])
             rows = phase("kernels", time_kernels, checker, launches)

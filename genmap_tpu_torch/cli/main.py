@@ -7,6 +7,7 @@ CLI, GenMap src/indexing.hpp:277-345, mappability.hpp:409-545); `map` adds
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 
@@ -15,6 +16,13 @@ def main(argv: list[str] | None = None) -> int:
 
     retain_heap()
     argv = list(sys.argv[1:] if argv is None else argv)
+    from genmap_tpu_torch.parallel.dist import maybe_initialize
+
+    # a torch.distributed world from GENMAP_DIST_* (one process per GPU),
+    # its backend chosen by the map's --device
+    dev = argparse.ArgumentParser(add_help=False)
+    dev.add_argument("--device", default="cuda")
+    maybe_initialize(dev.parse_known_args(argv)[0].device)
     if argv and argv[0] == "--version":
         from genmap_tpu_torch import __version__
 

@@ -5,7 +5,9 @@ src/mappability.hpp:409-642): the same flag surface, overlap default and
 clamp, output-path semantics, BED selection and per-file compute + output
 loop, CSV locations (-d) and exclude-pseudo (-ep), plus `--device`.
 Single- and multi-part indexes map on one device; the dimer rows are used
-as the JAX CLI uses them (the engine's automatic policy, no flag).
+as the JAX CLI uses them (the engine's automatic policy, no flag).  In a
+torch.distributed world (parallel/dist.py) every process computes the same
+vectors and only rank 0 writes the output files.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from genmap_tpu_torch.io.writers import (
     save_wig,
 )
 from genmap_tpu_torch.ops.rank import resolve_device
+from genmap_tpu_torch.parallel.dist import is_writer
 
 
 def default_overlap(K: int, errors: int) -> int:
@@ -43,10 +46,12 @@ def default_overlap(K: int, errors: int) -> int:
     return int(K * min(max(K, 30), 100) * factor / 100.0)
 
 
-def map_main(argv: list[str], report: dict | None = None) -> int:
+def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
     """Run `map`.  When `report` is given it receives the engine's stats,
     the mapped k-mer count, the compute time, the device's resident bytes
-    and the engine's calibrated pools and extension schedules."""
+    and the engine's calibrated pools and extension schedules.  `mesh`
+    (parallel/mesh.py; a Python argument, as the JAX CLI has no mesh
+    option) maps on that mesh, every rank calling map_main alike."""
     p = argparse.ArgumentParser(prog="genmap-tpu-torch map", add_help=True)
     p.add_argument("-I", "--index", required=True)
     p.add_argument("-O", "--output", required=True)
@@ -142,7 +147,7 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
         data, batch_blocks=args.batch_blocks, batch_kmers=args.batch_kmers,
         # SA samples / locate are only read by the CSV and exclude-pseudo
         # paths; skipping their upload saves device memory
-        light=not (args.csv or args.exclude_pseudo), device=device,
+        light=not (args.csv or args.exclude_pseudo), device=device, mesh=mesh,
     )
     params = SearchParams(
         length=K,
@@ -198,6 +203,8 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
             n_kmers += nk
         else:
             n_kmers += sum(max(0, min(e, nk) - b) for b, e in intervals)
+        if not is_writer():
+            continue
 
         path = out_path
         if not includes_filename:
@@ -242,7 +249,7 @@ def map_main(argv: list[str], report: dict | None = None) -> int:
         report.update(
             stats=dict(st), n_kmers=n_kmers, compute_s=compute_s,
             resident_bytes=engine.resident_bytes(), device=str(engine.device),
-            part_bytes=[ix.resident_bytes() for ix in engine.indices],
+            part_bytes=[ix.resident_bytes() for ix in engine.resident_indices()],
             tuned_pools=dict(engine._tuned_pools), ext_sched=dict(engine._ext_sched),
         )
     return 0

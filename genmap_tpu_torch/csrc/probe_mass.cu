@@ -27,6 +27,16 @@
 // and writes the new sum there (the decision waits for the last part); a
 // launch with skip decides on the sum.  With one part neither accumulator
 // is given and the launch is the plain one.
+//
+// Part mesh (entry genmap_probe_mass_reduced; replaces the psum-then-
+// decide of genmap_tpu/parallel/partmesh.py:make_part_prober): each device
+// runs its part's launch with acc_out, the accumulators are summed over
+// the devices of the part axis (an all_reduce outside the kernel), and
+// this entry decides on the sum: one thread per block reads its P + 1
+// int64 words, saturates each mass at 2^32 - 1 (a sum of saturated part
+// masses cannot wrap int64), tests it against thr[p] and the flag column
+// against 0, and writes the skip byte (and the saturated masses when
+// asked).  Bound: bytes, 8 (P + 1) read and 1 (+ 4 P) written per block.
 
 #include "genmap.cuh"
 
@@ -100,5 +110,36 @@ extern "C" int genmap_probe_mass(const void* st, const void* valid,
       (const int32_t*)thr, (const int64_t*)acc_in, (int64_t*)acc_out,
       (uint8_t*)skip, (int32_t*)mass_out,
       (uint8_t*)nwin_out);
+  return (int)cudaGetLastError();
+}
+
+__global__ void probe_mass_reduced_kernel(const int64_t* __restrict__ acc,
+                                          int64_t B, int P,
+                                          const int32_t* __restrict__ thr,
+                                          uint8_t* __restrict__ skip,
+                                          int32_t* __restrict__ mass_out) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int64_t* row = acc + b * (P + 1);
+  bool ok = row[P] == 0;
+  for (int p = 0; p < P; ++p) {
+    const int64_t m = row[p];
+    const uint32_t sat = m > 0xFFFFFFFFll ? 0xFFFFFFFFu : (uint32_t)m;
+    ok = ok && sat <= (uint32_t)thr[p];
+    if (mass_out) mass_out[b * P + p] = (int32_t)sat;
+  }
+  skip[b] = ok ? 1 : 0;
+}
+
+extern "C" int genmap_probe_mass_reduced(const void* acc, long long B, int P,
+                                         const void* thr, void* skip,
+                                         void* mass_out, void* stream) {
+  if (B == 0) return 0;
+  if (P < 1 || P > GM_PROBE_MAX_P) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((B + threads - 1) / threads);
+  probe_mass_reduced_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)acc, (int64_t)B, P, (const int32_t*)thr, (uint8_t*)skip,
+      (int32_t*)mass_out);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 """Host orchestrator: per-file (k,e)-frequency computation on the device.
 
-Port of `genmap_tpu/engine/mappability.py` on one device, for single- and
-multi-part indexes: block decomposition of a file (or of a BED selection),
-the unique-infix probe, same-k-mer dedup, occupancy calibration of each
-tier's cohort (per index part), the batch loop over the block mapper
-(search/engine.py, one mapper per index part, counts summed over the
-parts) or, for single-part plain-counting maps with J >= 16, the split
+Port of `genmap_tpu/engine/mappability.py`, for single- and multi-part
+indexes, on one device or on a mesh of ranks (parallel/): block
+decomposition of a file (or of a BED selection), the unique-infix probe,
+same-k-mer dedup, occupancy calibration of each tier's cohort (per index
+part), the batch loop over the block mapper (search/engine.py, one mapper
+per index part, counts summed over the parts; on a part mesh one mapper
+whose counts merge over the ranks) or, for single-part plain-counting
+maps on one device with J >= 16, the split
 pipeline (phase-A infix collectors, phase-B extenders per survivor rung
 with the fast-dimer -> exact-dimer -> exact-mono mode ladder), the
 dimer-table policy (tier 0 and twins of the wide tiers on the dimer rows),
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from genmap_tpu_torch.index.fmindex import FMIndexData
-from genmap_tpu_torch.ops.rank import DeviceIndex, DeviceText, locate, resolve_device
+from genmap_tpu_torch.ops.rank import DeviceText, locate, resolve_device
+from genmap_tpu_torch.parallel.mesh import replicate_index
 from genmap_tpu_torch.progress import Progress
 from genmap_tpu_torch.search.engine import (
     DEFAULT_TIERS,
@@ -133,7 +136,7 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 
 
 class MappabilityEngine:
-    """Single-device mapping engine.
+    """The mapping engine.
 
     Runs on `device` ("cuda" by default; "cpu" takes every kernel's plain
     PyTorch version); raises on "cuda" without a card.  Every part of a
@@ -141,6 +144,14 @@ class MappabilityEngine:
     matches never span parts, so per-part counts add up.  `light=True`
     leaves the SA samples off the device: only `locate` (CSV,
     exclude-pseudo) reads them.
+
+    `mesh` (parallel/mesh.py, every rank of the world constructing its
+    engine alike): a data mesh keeps every part on every rank and splits
+    each batch's blocks over the ranks; a part x data mesh
+    (parallel/partmesh.py) keeps one part per rank and merges per-part
+    results over the part axis.  Batch sizes round up to multiples of the
+    data size, the split pipeline stays off (the JAX package's gate), and
+    every rank returns the same results.
 
     `dimer_tier`: None (auto) runs tier 0 on the dimer rows for
     configurations whose static pool schedule is wide (mean >= 12 slots) and
@@ -160,6 +171,7 @@ class MappabilityEngine:
         light: bool = False,
         device="cuda",
         dimer_tier: bool | None = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.data = data
@@ -168,9 +180,20 @@ class MappabilityEngine:
         self.dedup = dedup
         self.light = light
         self.tiers = tuple(tiers)
+        self.mesh = mesh
+        self.part_sharded = mesh is not None and "part" in mesh.axis_names
         self.dtext = DeviceText.from_host(data, self.device)
-        self.indices = [DeviceIndex.from_part(data, p, light=light, device=self.device)
-                        for p in data.parts]
+        if self.part_sharded:
+            from genmap_tpu_torch.parallel.partmesh import stack_parts
+
+            self.indices = None
+            self.stacked = stack_parts(data, mesh, light=light, device=self.device)
+            self._part_locator = None
+        else:
+            self.indices = replicate_index(data, light, self.device)
+        # blocks per rank: the batch splits evenly over the data axis
+        self._mesh_data = 1 if mesh is None else mesh.shape["data"]
+        self.batch_blocks = self._round(batch_blocks)
         self.layouts = file_layouts(data)
         # dimer-tier policy (see the class docstring); the auto gate's
         # thresholds were set on a TPU and are kept so that the tier routing
@@ -230,10 +253,20 @@ class MappabilityEngine:
             self._text = self.data.decode_text()
         return self._text
 
+    def resident_indices(self) -> list:
+        """The index parts held on this device."""
+        return [self.stacked["index"]] if self.part_sharded else self.indices
+
     def resident_bytes(self) -> int:
         """Bytes of index parts and text held on the device."""
-        return (sum(ix.resident_bytes() for ix in self.indices)
+        return (sum(ix.resident_bytes() for ix in self.resident_indices())
                 + self.dtext.resident_bytes())
+
+    def _round(self, B: int) -> int:
+        """B rounded up to a multiple of the mesh's data size (at least
+        one block per rank)."""
+        n = self._mesh_data
+        return max(n, -(-B // n) * n)
 
     def _runner(self, pi, K, errors, o, J, B, tier, cap, rev_compl,
                 with_states=False, with_exact=False, probe=False,
@@ -247,16 +280,57 @@ class MappabilityEngine:
                 J=J, B=B, tier=tier, cap=cap, rev_compl=rev_compl,
                 with_states=with_states, with_exact=with_exact, probe=probe,
                 probe_cut=probe_cut, pools=pools, with_occ=with_occ,
-                collect_only=collect_only,
+                collect_only=collect_only, mesh=self.mesh,
             )
         return self._runners[key]
 
-    def _runners_for(self, *args, pools_list=None, **kw) -> list[BlockMapper]:
-        """One batch mapper per index part (arguments of `_runner`), each at
-        its part's calibrated pools where `pools_list` gives them."""
-        return [self._runner(pi, *args, **kw,
-                             pools=None if pools_list is None else pools_list[pi])
-                for pi in range(len(self.indices))]
+    def _runners_for(self, K, errors, o, J, B, tier, cap, rev_compl, *,
+                     pools_list=None, with_states=False, with_exact=False,
+                     probe=False, probe_cut=None, with_occ=False) -> list[BlockMapper]:
+        """One batch mapper per index part, each at its part's calibrated
+        pools where `pools_list` gives them; on a part mesh ONE mapper (or
+        prober) whose outputs are already merged over the parts, at the
+        calibrated pools of the widest part."""
+        if not self.part_sharded:
+            return [self._runner(pi, K, errors, o, J, B, tier, cap, rev_compl,
+                                 with_states=with_states, with_exact=with_exact,
+                                 probe=probe, probe_cut=probe_cut, with_occ=with_occ,
+                                 pools=None if pools_list is None else pools_list[pi])
+                    for pi in range(len(self.indices))]
+        from genmap_tpu_torch.parallel.partmesh import PartMapper, PartProber
+
+        pools = None if pools_list is None else pools_list[0]
+        key = ("psh", K, errors, o, J, B, tier, cap, rev_compl, with_states,
+               with_exact, probe, probe_cut, pools, with_occ)
+        if key not in self._runners:
+            common = dict(K=K, errors=errors, overlap=o, J=J, B=B, tier=tier, cap=cap,
+                          rev_compl=rev_compl)
+            self._runners[key] = (
+                PartProber(self.stacked, self.dtext, self.mesh, **common,
+                           probe_cut=probe_cut) if probe else
+                PartMapper(self.stacked, self.dtext, self.mesh, **common, pools=pools,
+                           with_occ=with_occ, with_exact_parts=with_exact,
+                           with_states=with_states))
+        return [self._runners[key]]
+
+    def _expand_part_outs(self, outs: list) -> list:
+        """A part-mesh mapper returns ONE merged dict; expand it into the
+        per-part list the CSV and dedup host code reads: per-part axes from
+        the gathered *_parts outputs, merged counts on part 0 and zeros on
+        the others (the consumers sum over parts)."""
+        if not (self.part_sharded and "exact_flo_parts" in outs[0]):
+            return outs
+        out = outs[0]
+        res = []
+        for pi in range(len(self.data.parts)):
+            d = {k: (v if pi == 0 else np.zeros_like(v)) for k, v in out.items()
+                 if k in ("hits", "overflow", "overflow_cap", "exact_size")}
+            d["exact_size_total"] = out["exact_size_total_parts"][:, pi]
+            d["exact_flo"] = out["exact_flo_parts"][:, pi]
+            if "states_parts" in out:
+                d["states"] = tuple(a[:, pi] for a in out["states_parts"])
+            res.append(d)
+        return res
 
     def _map_seq_ids(self, pi: int, i1: np.ndarray) -> np.ndarray:
         """Map part-local sequence ids to global ids (rc half after all fwd)."""
@@ -280,11 +354,20 @@ class MappabilityEngine:
         i2 = np.empty(n, dtype=np.uint32)
         ch = self._locate_chunk
         dev = self.device
+        if self.part_sharded:
+            # LF walks on the ranks of part pi, against its own sampled SA
+            from genmap_tpu_torch.parallel.partmesh import PartLocator
+
+            if self._part_locator is None:
+                self._part_locator = PartLocator(self.stacked, self.mesh)
+            fn = self._part_locator
+        else:
+            fn = lambda p, pos, valid: locate(self.indices[p], pos, valid)  # noqa: E731
         for s in range(0, n, ch):
             part = np.ascontiguousarray(positions[s : s + ch], dtype=np.uint32)
             pos = torch.from_numpy(part.view(np.int32)).to(dev)
             valid = torch.ones(len(part), dtype=torch.uint8, device=dev)
-            r1, r2 = locate(self.indices[pi], pos, valid)
+            r1, r2 = fn(pi, pos, valid)
             i1[s : s + len(part)] = _u32(r1)
             i2[s : s + len(part)] = _u32(r2)
         return self._map_seq_ids(pi, i1), i2
@@ -474,6 +557,12 @@ class MappabilityEngine:
             # program's, so its batches may exceed the caller's block budget
             Bp = max(32, min(8 * B0, WORK // max(1, infix_cost),
                              SLOTS // max(1, int(eff.max()))))
+            if self.mesh is not None:
+                # the JAX package's rounding under a mesh (its skip-bitmap
+                # words, split over the data axis), so the probe batches
+                # equal its
+                nsh = self._mesh_data
+                Bp = max(nsh, -(-Bp // (32 * nsh)) * 32 * nsh)
             pending, abandoned = self._probe(job, pending, tier0, probe_cut, Bp,
                                              progress)
             if not abandoned:
@@ -541,15 +630,16 @@ class MappabilityEngine:
                 else:
                     rung = 1024
                 B = min(B, rung)
-            return B
+            return self._round(B)
 
         # the split pipeline (phase-A infix collectors, phase-B extenders
         # per survivor rung): the JAX package's gate, copied so that the
-        # routing and the stats equal its — one index part, plain counting,
-        # and only where the extension dominates (J >= 16)
+        # routing and the stats equal its — one device, one index part,
+        # plain counting, and only where the extension dominates (J >= 16)
         use_split = (
             collect_exact is None
             and not csv_needed
+            and self.mesh is None
             and len(self.indices) == 1
             and J >= 16
         )
@@ -630,7 +720,8 @@ class MappabilityEngine:
             if rescue:
                 ids = np.unique(np.concatenate(rescue))
                 cost, peak = block_cost(pristine)
-                B = max(8, min(B0, WORK // max(1, cost), SLOTS // max(1, peak), 1024))
+                B = self._round(max(8, min(B0, WORK // max(1, cost),
+                                           SLOTS // max(1, peak), 1024)))
                 still += self._run_blocks(job, pristine, ids, B, last, None)
             n_still = sum(len(a) for a in still)
             if n_still:
@@ -681,7 +772,8 @@ class MappabilityEngine:
         # bound the batch by the measuring tier's full peak (infix pool and
         # the J x f_extend extension frontier)
         _, peak_meas = block_cost(meas_tier)
-        B_cal = min(self._cal_batch, max(64, (1 << 20) // max(1, peak_meas)))
+        B_cal = self._round(min(self._round(self._cal_batch),
+                                max(64, (1 << 20) // max(1, peak_meas))))
         if len(pending) < 3 * B_cal:
             return pending, None, None
         idx = np.unique(np.linspace(0, len(pending) - 1, B_cal).astype(np.int64))
@@ -715,7 +807,9 @@ class MappabilityEngine:
             # overflowing blocks included: they are the heavy cohort the
             # pools must be provisioned for
             occ = out["occ"][:nb].astype(np.int64)  # [nb, T]
-            n_pi = self.data.parts[pi].n_total
+            # a part mesh's occ is already the max over parts: its one
+            # shared program's pools are sized against the widest part
+            n_pi = n_max if self.part_sharded else self.data.parts[pi].n_total
             base_pi = infix_pool_schedule(plans, K - o, n_pi, cal_tier.f_search / 4.0)
             clamp_pi = infix_pool_schedule(plans, K - o, n_pi, next_scale)
             # a block escalates if it exceeds the pool at ANY step: rank
@@ -1052,10 +1146,11 @@ class MappabilityEngine:
             t0 = time.perf_counter()
             outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B)
             t1 = time.perf_counter()
-            outs = [{k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
-                         else v.cpu().numpy())
-                     for k, v in out.items()}
-                    for out in outs]
+            outs = self._expand_part_outs(
+                [{k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
+                      else v.cpu().numpy())
+                  for k, v in out.items()}
+                 for out in outs])
             t2 = time.perf_counter()
             ovf = np.zeros(nb, bool)
             ovfc = np.zeros(nb, bool)

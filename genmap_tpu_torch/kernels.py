@@ -10,7 +10,8 @@ into one shared library each, loaded with ctypes):
   count_tail       per-k-mer saturating occurrence counts (+ strand split),
                    and on request each k-mer's zero-error interval
   probe_mass       the unique-infix probe's per-plan survivor mass and skip,
-                   summed over the parts of a multi-part index
+                   summed over the parts of a multi-part index (or, on a
+                   part mesh, decided from the sum over devices)
   locate           SA rows to (sequence, position) by LF walks (CSV, -ep)
   dimer_step       the candidate step on the dimer rank rows: 0, 1 or 2
                    characters per state and row read
@@ -59,13 +60,15 @@ _L = ctypes.c_longlong
 class Kernel:
     """One CUDA source compiled into its own shared library."""
 
-    def __init__(self, name: str, source: str, replaces: str, argtypes):
+    def __init__(self, name: str, source: str, replaces: str, argtypes,
+                 entries=None):
         self.name = name
         self.source = source  # file name under csrc/
         self.replaces = replaces  # file:line of the JAX function it ports
-        self.argtypes = argtypes
+        # C entry points genmap_<name><suffix> -> argtypes ("" is the main one)
+        self.entries = {"": argtypes, **(entries or {})}
         self.launches = 0
-        self._fn = None
+        self._fns: dict = {}
 
     @property
     def source_path(self) -> str:
@@ -78,22 +81,23 @@ class Kernel:
                 h.update(f.read())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
-    def fn(self):
-        """The bound C entry point `genmap_<name>` (built on first use)."""
-        if self._fn is None:
+    def fn(self, entry: str = ""):
+        """The bound C entry point `genmap_<name><entry>` (built on first
+        use)."""
+        if entry not in self._fns:
             build([self])
             lib = ctypes.CDLL(self.lib_path())
-            fn = getattr(lib, f"genmap_{self.name}")
-            fn.argtypes = self.argtypes
+            fn = getattr(lib, f"genmap_{self.name}{entry}")
+            fn.argtypes = self.entries[entry]
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[entry] = fn
+        return self._fns[entry]
 
-    def launch(self, *args) -> None:
-        err = self.fn()(*args)
+    def launch(self, *args, entry: str = "") -> None:
+        err = self.fn(entry)(*args)
         if err != 0:
             raise RuntimeError(
-                f"CUDA kernel {self.name} failed to launch: cudaError_t {err}"
+                f"CUDA kernel {self.name}{entry} failed to launch: cudaError_t {err}"
             )
         self.launches += 1
 
@@ -470,10 +474,13 @@ def count_tail(index, st, valid, cnt, J: int, cap: int, rev_compl: bool,
 # ---------------------------------------------------------------------------
 
 PROBE_MASS = Kernel(
-    # the probe branch of block_mapper_impl (mass_p, nwin, skip test), and
-    # the engine's sum of the masses over index parts
+    # the probe branch of block_mapper_impl (mass_p, nwin, skip test), the
+    # engine's sum of the masses over index parts, and (entry _reduced) the
+    # part mesh's decision on the masses summed over devices
+    # (genmap_tpu/parallel/partmesh.py:321-325)
     "probe_mass", "probe_mass.cu", "genmap_tpu/search/engine.py:1251",
     [_P, _P, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    entries={"_reduced": [_P, _L, _I, _P, _P, _P, _P]},
 )
 PROBE_MAX_PLANS = 16
 
@@ -481,8 +488,13 @@ PROBE_MAX_PLANS = 16
 def probe_mass_plain(st, valid, ovf, needles, thr, has_n: bool,
                      with_mass: bool = False, acc=None, last: bool = True):
     """Plain PyTorch version of `probe_mass`."""
-    _R, B, F = st.shape
     P = thr.shape[0]
+    if st is None:
+        mass = acc[:, :P].clamp(max=rank.MASK32)
+        skip = ((mass <= thr.to(torch.int64)[None, :]).all(dim=-1)
+                & (acc[:, P] == 0)).to(torch.uint8)
+        return (skip, rank.as_i32(mass)) if with_mass else skip
+    _R, B, F = st.shape
     plan = st[4].to(torch.int64)
     inplan = valid.bool() & (plan >= 0) & (plan < P)
     mass = torch.zeros((B, P), dtype=torch.int64, device=st.device).scatter_add_(
@@ -522,7 +534,15 @@ def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = Fals
     their overflow and N-window flags ORed); a launch with last=False adds
     this part and returns the new accumulator (a new tensor; `acc` is not
     written), the launch for the last part (last=True) decides on the sum.
-    With one part (acc None, last True) the launch is the plain skip test."""
+    With one part (acc None, last True) the launch is the plain skip test.
+
+    Part mesh: with st (and valid, ovf, needles) None, the launch decides
+    from `acc` alone — the parts' accumulators summed over devices (each
+    mass already saturated, so the int64 sum cannot wrap): masses saturate
+    at 2^32 - 1 and a non-zero flag column marks the block.  Returns skip,
+    or with with_mass (skip, mass_p)."""
+    if st is None:
+        return _probe_mass_reduced(acc, thr, with_mass)
     if not st.is_cuda:
         return probe_mass_plain(st, valid, ovf, needles, thr, has_n, with_mass,
                                 acc, last)
@@ -557,6 +577,24 @@ def probe_mass(st, valid, ovf, needles, thr, has_n: bool, with_mass: bool = Fals
     if not last:
         return acc_out
     return (skip, mass, nwin) if with_mass else skip
+
+
+def _probe_mass_reduced(acc, thr, with_mass: bool):
+    if not acc.is_cuda:
+        return probe_mass_plain(None, None, None, None, thr, False, with_mass, acc)
+    dev = acc.device
+    P = thr.shape[0]
+    B = acc.shape[0]
+    if not 1 <= P <= PROBE_MAX_PLANS:
+        raise ValueError(f"probe_mass: bad plan count P={P}")
+    _check(acc, "acc", torch.int64, (B, P + 1), dev)
+    _check(thr, "thr", torch.int32, (P,), dev)
+    skip = torch.empty((B,), dtype=torch.uint8, device=dev)
+    mass = torch.empty((B, P), dtype=torch.int32, device=dev) if with_mass else None
+    PROBE_MASS.launch(acc.data_ptr(), B, P, thr.data_ptr(), skip.data_ptr(),
+                      None if mass is None else mass.data_ptr(), _stream(acc),
+                      entry="_reduced")
+    return (skip, mass) if with_mass else skip
 
 
 # ---------------------------------------------------------------------------

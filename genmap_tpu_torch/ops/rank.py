@@ -183,13 +183,15 @@ class DeviceIndex:
         dimer: np.ndarray | None = None,
         C2: np.ndarray | None = None,
         device="cuda",
+        seed_t0: int | None = None,
     ) -> "DeviceIndex":
         """Upload one part from its host arrays: `blocks` are the rank
         SUB-rows of `index/fmindex.py` (paired here), `C` the [6] C array.
         The SA samples and indicator rows are only read by `locate` (CSV,
         exclude-pseudo); pass None to skip them.  `dimer` / `C2` are the
         part's dimer sub-rows and C2 array (None: no dimer rows).  The seed
-        tables are built on the device."""
+        tables are built on the device, `seed_t0` levels deep (default:
+        seed_depth of the part)."""
         dev = resolve_device(device)
         light = sa_i1 is None
         C = np.asarray(C)
@@ -214,11 +216,12 @@ class DeviceIndex:
             sampling=int(sampling),
             n_total=int(C[5]),
         )
-        return with_seed_tables(index)
+        return with_seed_tables(index, seed_t0)
 
     @staticmethod
     def from_part(
-        data: FMIndexData, part: IndexPart, light: bool = False, device="cuda"
+        data: FMIndexData, part: IndexPart, light: bool = False, device="cuda",
+        seed_t0: int | None = None,
     ) -> "DeviceIndex":
         """Upload one part of a host index.  `light=True` skips the
         sampled-SA values and the sampling-indicator rank rows, which only
@@ -231,7 +234,7 @@ class DeviceIndex:
             sa_i2=None if light else part.sa_i2,
             ind_blocks=None if light else part.ind_blocks,
             dimer=part.dimer, C2=part.C2,
-            device=device,
+            device=device, seed_t0=seed_t0,
         )
 
 
@@ -510,7 +513,7 @@ def locate(index: DeviceIndex, pos: torch.Tensor, valid: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def with_seed_tables(index: DeviceIndex) -> DeviceIndex:
+def with_seed_tables(index: DeviceIndex, t0: int | None = None) -> DeviceIndex:
     """Attach interval seed tables: the FMD interval of EVERY ACGT string of
     length 0..t0, levels concatenated (seed_level_offset).
 
@@ -520,11 +523,12 @@ def with_seed_tables(index: DeviceIndex) -> DeviceIndex:
     (lo, size) are stored: the companion offset of w is seed_mlo[code(rc(w))]
     by strand symmetry.  Built level by level with the exact candidate step
     (`kernels.candidate_step`), in chunks that bound the plain path's memory.
+    `t0` overrides the depth (the parts of a part mesh share the smallest).
     """
     from genmap_tpu_torch import kernels
 
     n = index.n_total
-    t0 = seed_depth(n)
+    t0 = seed_depth(n) if t0 is None else t0
     dev = index.device
     chunk = (1 << 22) if dev.type == "cuda" else (1 << 15)
     A = index.nchars

@@ -777,14 +777,23 @@ class BlockMapper:
     phase A: the infix scan only, its survivors packed to the front of
     their slots at the final pool's width Fc, returned as device tensors
     st [4, B, Fc] int32 (flo, rlo, size, err) and valid [B, Fc], with
-    surv [B] uint16, overflow and overflow_cap."""
+    surv [B] uint16, overflow and overflow_cap.
+
+    `n_static` sizes the pool schedule and the exact prefix for an index of
+    that many symbols instead of this part's (the part mesh: every device
+    runs the schedule of the largest part).  With a data mesh (`mesh`,
+    parallel/mesh.py) each rank maps its rows of the batch and the outputs
+    are gathered over the data line, so every rank returns the whole
+    batch's (port of make_block_mapper's shard_map branch); a probe call
+    with last=False returns this rank's running sum only."""
 
     def __init__(self, index: DeviceIndex, dtext: DeviceText, *, K: int,
                  errors: int, overlap: int, J: int, B: int, tier: Tier,
                  cap: int, rev_compl: bool, with_exact: bool = False,
                  with_states: bool = False, probe: bool = False,
                  probe_cut=None, probe_mass: bool = False, pools=None,
-                 with_occ: bool = False, collect_only: bool = False):
+                 with_occ: bool = False, collect_only: bool = False,
+                 n_static: int | None = None, mesh=None):
         if overlap != K - J + 1:
             raise ValueError(f"overlap {overlap} != K - J + 1 = {K - J + 1}")
         if not 0 < cap <= 65535:
@@ -800,14 +809,16 @@ class BlockMapper:
         self.with_exact, self.with_states = with_exact, with_states
         self.probe, self.probe_cut, self.probe_mass = probe, probe_cut, probe_mass
         self.with_occ, self.collect_only = with_occ, collect_only
+        self.mesh = mesh
         self.Ln = K + J - 1
         plans = plans_for(errors, overlap)
         infix_off = K - overlap
         self.n_total = index.n_total
+        n_sched = self.n_total if n_static is None else n_static
         # the dimer rows' fast window is 256 symbols: intervals must shrink
         # to ~16 before the fast steps start
-        self.exact_steps = exact_prefix_steps(self.n_total, 16 if tier.dimer else 64)
-        self.pools = (infix_pool_schedule(plans, infix_off, self.n_total,
+        self.exact_steps = exact_prefix_steps(n_sched, 16 if tier.dimer else 64)
+        self.pools = (infix_pool_schedule(plans, infix_off, n_sched,
                                           tier.f_search / 4.0)
                       if pools is None else np.asarray(pools, np.int64))
         self.sched = _InfixSchedule(plans, infix_off, dev)
@@ -826,6 +837,16 @@ class BlockMapper:
         )
 
     def __call__(self, starts, cnt, limit, acc=None, last: bool = True):
+        if self.mesh is None:
+            return self._run(starts, cnt, limit, acc, last)
+        from genmap_tpu_torch.parallel.dist import fetch, put_global_batch
+
+        out = self._run(put_global_batch(starts, self.mesh),
+                        put_global_batch(cnt, self.mesh), limit, acc, last)
+        return out if self.probe and not last else fetch(out, self.mesh)
+
+    def _run(self, starts, cnt, limit, acc=None, last: bool = True):
+        """The batch on this device alone."""
         B = starts.shape[0]
         needles = extract_needles(self.dtext, starts, self.Ln, limit)
         if self.tier.dimer:

@@ -203,6 +203,29 @@ def test_probe_mass(cuda, alpha, with_mass):
         assert ref[0].any() and not ref[0].all()
 
 
+@pytest.mark.parametrize("with_mass", [True, False])
+def test_probe_mass_reduced(cuda, with_mass):
+    """The part mesh's decision on accumulators summed over devices: masses
+    past 2^32 saturate, a non-zero flag column blocks the skip."""
+    rng = np.random.default_rng(41)
+    for B, P in ((500, 3), (33, 7), (1, 1)):
+        acc = rng.integers(0, 3, (B, P + 1))
+        acc[:, P] = rng.random(B) < 0.1
+        big = rng.random((B, P)) < 0.05
+        acc[:, :P][big] = rng.integers(2**32 - 2, 2**34, int(big.sum()))
+        thr = rng.integers(0, 2, P).astype(np.int32)
+        args = (torch.from_numpy(acc.astype(np.int64)), torch.from_numpy(thr))
+        ref = kernels.probe_mass(None, None, None, None, args[1], False, with_mass,
+                                 acc=args[0])
+        got = kernels.probe_mass(None, None, None, None, args[1].to(cuda), False,
+                                 with_mass, acc=args[0].to(cuda))
+        torch.cuda.synchronize()
+        ref = ref if with_mass else (ref,)
+        got = got if with_mass else (got,)
+        for a, b in zip(got, ref):
+            _eq(a, b)
+
+
 @pytest.mark.parametrize("alpha", [4, 5])
 def test_locate(cuda, alpha):
     data = _data(alpha)

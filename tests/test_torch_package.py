@@ -29,6 +29,10 @@ _MODULES = (
     "genmap_tpu_torch.ops.rank",
     "genmap_tpu_torch.index.fmindex",
     "genmap_tpu_torch.io.writers",
+    "genmap_tpu_torch.parallel.dist",
+    "genmap_tpu_torch.parallel.mesh",
+    "genmap_tpu_torch.parallel.partmesh",
+    "genmap_tpu_torch.parallel.dryrun",
 )
 
 
