@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of genmap_tpu_torch on one NVIDIA GPU: kernels, main path,
 dimer tiers, dedup, CSV locations and exclude-pseudo, multi-part indexes,
-cross-checks.
+meshes, the row-gather sweep, cross-checks.
 
     python3 chip_smoke.py
 
@@ -86,11 +86,20 @@ or of the JAX package.  Phases (any failure exits non-zero):
              held against the plain versions (the reduced probe_mass entry
              included); part(2) x data(1) over NCCL where the machine has
              two cards
- 11. kernels the largest checked call of each kernel (and of each
+ 11. rowgather  `experiments/row_gather.py`, the port of the Pallas
+             row-DMA harness (benchmarks/pallas_experiments.py), on the card:
+             its two lines at the harness's sizes (every lanes variant equal
+             to the plain version) and its sweep of random-row read rates
+             over row width, table size (L2- to hg38-sized), id order,
+             dependence, lanes and blocks per SM, counters set to 0 just
+             before and read just after (row_gather must launch); the
+             kernel's edge cases against its plain version; the read rates
+             of candidate_step and dimer_step beside the sweep's
+ 12. kernels the largest checked call of each kernel (and of each
              dimer_step variant) is timed on the card (kernel, plain
              version, library call where one exists) beside its bound
 
-Output: a line per kernel (nine), `{"kernels": [...]}`, the card's name and
+Output: a line per kernel (ten), `{"kernels": [...]}`, the card's name and
 power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 """
 
@@ -583,7 +592,7 @@ def library_fn(name, args):
 
 
 def time_kernels(checker, launches):
-    """Phase 8: the largest checked call of each kernel (and of count_tail's
+    """Phase 12: the largest checked call of each kernel (and of count_tail's
     zero-error variant), timed; returns the kernels line's rows."""
     from genmap_tpu_torch import kernels
 
@@ -1689,6 +1698,154 @@ def mesh4_phase(work, refs):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the row gather (the Pallas harness's port) and the read rates
+# ---------------------------------------------------------------------------
+
+
+def rowgather_edges(dev) -> int:
+    """row_gather_sum and row_gather_chain against their plain versions on
+    the card, every lanes variant: the harness's table shape (16 B vector
+    reads) and a 69-word one (word reads), each also with row sums that all
+    wrap negative; 4,096 ids (whole chunks) and 4,000 (the last 32 dropped);
+    a grid capped at 132 blocks (grid stride); a table that is not 16 B
+    aligned.  Returns the largest error (0), or raises."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.experiments import row_gather as rg
+
+    NR = rg.HARNESS["NR"]
+    cases = 0
+    for W in (128, 69):
+        rng = np.random.default_rng(SEED + W)
+        for table in (rg.harness_inputs(NR, W, 0, 0)[0],
+                      rg.negative_wrap_table(NR, W, seed=SEED + W)):
+            t = torch.from_numpy(table).to(dev)
+            shifted = torch.cat([t.new_zeros(1), t.flatten()])[1:].view(NR, W)
+            tables = (t, shifted)
+            for ND in (4096, 4000):
+                idx = torch.from_numpy(rng.integers(0, NR, ND).astype(np.int32)).to(dev)
+                want = int(kernels.row_gather_sum_plain(t, idx))
+                for tt in tables:
+                    for lanes in rg.LANES:
+                        for blocks in (0, 132):
+                            got = int(kernels.row_gather_sum(tt, idx, lanes=lanes,
+                                                             blocks=blocks))
+                            if got != want:
+                                raise AssertionError(
+                                    f"row_gather_sum W={W} ND={ND} lanes={lanes} "
+                                    f"blocks={blocks}: {got} != plain {want}")
+                            cases += 1
+            idx = torch.from_numpy(rng.integers(0, NR, 1 << 17).astype(np.int32)).to(dev)
+            want = int(kernels.row_gather_chain_plain(t, idx))
+            for tt in tables:
+                for lanes in rg.LANES:
+                    for blocks in (0, 132):
+                        got = int(kernels.row_gather_chain(tt, idx, lanes=lanes,
+                                                           blocks=blocks))
+                        if got != want:
+                            raise AssertionError(
+                                f"row_gather_chain W={W} lanes={lanes} blocks={blocks}: "
+                                f"{got} != plain {want}")
+                        cases += 1
+    log(f"rowgather: {cases} edge-case calls equal to plain (W 128 and 69, row sums "
+        f"wrapping negative, ND 4,096 and 4,000, grids auto and 132 blocks, a "
+        f"table off 16 B alignment)")
+    return 0
+
+
+def dense_candidate_step(dev, checker, idx):
+    """candidate_step's largest checked call with every state valid and
+    random intervals on the main genome's index (its mono rows L2-sized):
+    the kernel's read rate when each thread reads rows.  Held against the
+    plain version; returns (ms, row reads, shape)."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.index.fmindex import FMIndexData
+    from genmap_tpu_torch.ops import rank
+
+    data = FMIndexData.load(idx)
+    index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=dev)
+    _size, args, _phase = checker.largest["candidate_step"]
+    if args["index"].nchars != index.nchars:
+        raise AssertionError("candidate_step's largest call is on another alphabet")
+    st = args["st"].clone()
+    R, N = st.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = int(index.n_total)
+    for r, (lo, hi) in enumerate(((0, n - 64), (0, n - 64), (1, 64))):  # flo, rlo, size
+        st[r] = torch.randint(lo, hi, (N,), device=dev, generator=gen, dtype=torch.int32)
+    dense = dict(args, index=index, st=st, valid=torch.ones(N, dtype=torch.uint8, device=dev))
+    got = checker.orig["candidate_step"](**dense)
+    err = max_abs_err(got, kernels.candidate_step_plain(**dense))
+    if err:
+        raise AssertionError(f"dense candidate_step differs from plain (max abs err {err})")
+    ms = device_ms(lambda: checker.orig["candidate_step"](**dense))
+    _b, _o, shape, n_reads = kernel_work("candidate_step", dense)
+    return ms, n_reads, shape
+
+
+def rowgather_phase(dev, checker, idx):
+    """Phase 11: the row-gather entry point (`experiments/row_gather.py`,
+    the port of the Pallas harness) at the harness's sizes and its sweep,
+    launch counters set to 0 just before and read just after (row_gather
+    must launch); the edge cases against the plain versions; then the read
+    rates of candidate_step and dimer_step (their largest checked calls,
+    and candidate_step with every state valid) beside the sweep's random
+    read rates at their row widths.  Returns the kernels line's row and a
+    summary."""
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.experiments import row_gather as rg
+
+    kernels.reset_launches()
+    res = rg.run(dev, say=log)
+    counts = kernels.launch_counts()
+    if counts["row_gather"] <= 0:
+        raise AssertionError("row_gather was not launched by the row-gather entry point")
+    log(f"rowgather: row_gather launches in the entry point's run {counts['row_gather']}")
+    err = rowgather_edges(dev)
+
+    def rate(table, rb, lanes):
+        for r in res["sweep"]:
+            if (r["table"], r["row_bytes"], r["kind"], r["pattern"], r["lanes"],
+                    r["blocks"]) == (table, rb, "sum", "random", lanes, "auto"):
+                return r["rows_per_s"]
+        raise AssertionError(f"no sweep row for {table} {rb} B lanes {lanes}")
+
+    def ceiling(rb):
+        return ", ".join(f"lanes {ln}: {rate('20 MB', rb, ln):.3e} (20 MB, L2) / "
+                         f"{rate('4 GiB', rb, ln):.3e} (4 GiB, HBM)"
+                         for ln in rg.SWEEP_LANES)
+
+    summary = {}
+    for name, rb in (("candidate_step", 208), ("dimer_step", 512)):
+        _size, args, phase = checker.largest[name]
+        ms = device_ms(lambda: checker.orig[name](**args))
+        _b, _o, shape, n_reads = kernel_work(name, args)
+        summary[f"{name}_rows_per_s"] = n_reads / (ms * 1e-3)
+        log(f"rowgather: {name}, largest checked call (in {phase}: {shape}): "
+            f"{n_reads / (ms * 1e-3):.3e} rows/s in {ms:.4f} ms; random {rb} B row "
+            f"reads in the sweep, rows/s: {ceiling(rb)}")
+    ms, n_reads, shape = dense_candidate_step(dev, checker, idx)
+    summary["candidate_step_dense_rows_per_s"] = n_reads / (ms * 1e-3)
+    log(f"rowgather: candidate_step with every state valid on the main index "
+        f"({shape}): {n_reads / (ms * 1e-3):.3e} rows/s in {ms:.4f} ms; random 208 B "
+        f"row reads in the sweep, rows/s: {ceiling(208)}")
+    for rb in (208, 416, 512):
+        summary[f"sweep_{rb}B_rows_per_s"] = {
+            f"{t} lanes {ln}": rate(t, rb, ln) for t in ("20 MB", "4 GiB")
+            for ln in rg.SWEEP_LANES}
+    h = res["harness"]["sum"]
+    row = dict(name="row_gather", route="cuda", source="genmap_tpu_torch/csrc/row_gather.cu",
+               replaces=kernels.ROW_GATHER.replaces, launches=counts["row_gather"],
+               max_abs_err=err, ms=h["lanes"][32], plain_ms=h["plain_ms"],
+               bound_ms=h["bound_ms"], bound_by="bytes", library_ms=h["library_ms"])
+    summary["harness_ms"] = {k: v["lanes"][32] for k, v in res["harness"].items()}
+    return row, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1741,9 +1898,11 @@ def main() -> int:
             summary["multipart"], refs = phase("multipart", multipart_phase, work,
                                                checker)
             summary["mesh4"] = phase("mesh4", mesh4_phase, work, refs)
+            rg_row, summary["rowgather"] = phase("rowgather", rowgather_phase, dev,
+                                                 checker, idx)
             # launches: the whole-genome map's, and locate's from the -d map of chrI
             launches = dict(launches, locate=csv_counts["locate"])
-            rows = phase("kernels", time_kernels, checker, launches)
+            rows = phase("kernels", time_kernels, checker, launches) + [rg_row]
             phase("seed tables", time_seed_tables, idx)
     log(f"summary: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}), flush=True)

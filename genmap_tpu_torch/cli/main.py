@@ -18,11 +18,15 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     from genmap_tpu_torch.parallel.dist import maybe_initialize
 
-    # a torch.distributed world from GENMAP_DIST_* (one process per GPU),
-    # its backend chosen by the map's --device
-    dev = argparse.ArgumentParser(add_help=False)
-    dev.add_argument("--device", default="cuda")
-    maybe_initialize(dev.parse_known_args(argv)[0].device)
+    # a torch.distributed world from GENMAP_DIST_* (one process per GPU):
+    # `map` binds its --device (nccl for cuda, gloo for cpu); `index` is
+    # host work, so its world is gloo and binds no device
+    device = None
+    if argv and argv[0] == "map":
+        dev = argparse.ArgumentParser(add_help=False)
+        dev.add_argument("--device", default="cuda")
+        device = dev.parse_known_args(argv[1:])[0].device
+    maybe_initialize(device)
     if argv and argv[0] == "--version":
         from genmap_tpu_torch import __version__
 

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Nine kernels carry `map` (sources in `csrc/`, compiled with nvcc for sm_90a
-into one shared library each, loaded with ctypes):
+Nine kernels carry `map`, and a tenth measures the rank-row reads they are
+built on (sources in `csrc/`, compiled with nvcc for sm_90a into one shared
+library each, loaded with ctypes):
 
   extract_needles  needle windows from the packed text
   candidate_step   FMD extension of every search state by every character,
@@ -17,6 +18,9 @@ into one shared library each, loaded with ctypes):
                    characters per state and row read
   seed_lookup      the infix scan's starting pool from the seed tables
   gather_states    the split pipeline's rung gather of phase-A survivor rows
+  row_gather       the sum of random table rows, and dependent chains of
+                   row reads (the Pallas row-DMA harness's function; run by
+                   `experiments/row_gather.py`, not by `map`)
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it (the CPU tests' path and the reference the kernel
@@ -65,8 +69,10 @@ class Kernel:
         self.name = name
         self.source = source  # file name under csrc/
         self.replaces = replaces  # file:line of the JAX function it ports
-        # C entry points genmap_<name><suffix> -> argtypes ("" is the main one)
-        self.entries = {"": argtypes, **(entries or {})}
+        # C entry points genmap_<name><suffix> -> argtypes ("" is the main
+        # one; argtypes None: the source has only suffixed entries)
+        self.entries = {**({"": argtypes} if argtypes is not None else {}),
+                        **(entries or {})}
         self.launches = 0
         self._fns: dict = {}
 
@@ -948,6 +954,110 @@ def gather_states(st, valid, ridx, n: int, Fe: int):
     return out, out_valid
 
 
+# ---------------------------------------------------------------------------
+# 10. row_gather
+# ---------------------------------------------------------------------------
+
+ROW_GATHER = Kernel(
+    # the repo's one Pallas kernel: pallas_dma_sum (:106) with its body
+    # dma_kernel (:81), and (entry _chain) its baseline xla_chain (:72)
+    "row_gather", "row_gather.cu", "benchmarks/pallas_experiments.py:81", None,
+    entries={"_sum": [_P, _I, _I, _P, _L, _I, _I, _P, _P],
+             "_chain": [_P, _I, _I, _P, _L, _I, _I, _I, _P, _P]},
+)
+ROW_GATHER_LANES = (1, 4, 8, 32)
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """The int32 value of the low 32 bits of an int64 tensor (two's
+    complement: 2^32 is subtracted from values >= 2^31)."""
+    x = x & rank.MASK32
+    return (x - (x >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+
+
+def row_gather_sum_plain(table, idx, chunk: int = 128, lanes: int = 32,
+                         blocks: int = 0):
+    """Plain PyTorch version of `row_gather_sum` (`lanes` and `blocks` only
+    shape the kernel's launch)."""
+    n_used = idx.shape[0] // chunk * chunk
+    rows = torch.index_select(table, 0, idx[:n_used])
+    return _wrap_i32(rows.sum(dtype=torch.int64))
+
+
+def row_gather_chain_steps(table, idx, steps: int):
+    """The chains' ids before each step and after the last (steps + 1
+    tensors): c <- (the int32-wrapped sum of row c) floor-mod NR."""
+    NR = table.shape[0]
+    ids = [idx]
+    for _ in range(steps):
+        s = _wrap_i32(torch.index_select(table, 0, ids[-1]).sum(dim=-1, dtype=torch.int64))
+        ids.append(torch.remainder(s.to(torch.int64), NR).to(torch.int32))
+    return ids
+
+
+def row_gather_chain_plain(table, idx, steps: int = 8, lanes: int = 32,
+                           blocks: int = 0):
+    """Plain PyTorch version of `row_gather_chain`."""
+    return _wrap_i32(row_gather_chain_steps(table, idx, steps)[-1].sum(dtype=torch.int64))
+
+
+def _row_gather_check(table, idx, lanes: int, blocks: int) -> None:
+    if lanes not in ROW_GATHER_LANES:
+        raise ValueError(f"row_gather: lanes must be one of {ROW_GATHER_LANES}, got {lanes}")
+    if table.dim() != 2 or idx.dim() != 1 or blocks < 0:
+        raise ValueError(f"row_gather: bad geometry table {tuple(table.shape)} "
+                         f"idx {tuple(idx.shape)} blocks {blocks}")
+    if not 0 < table.shape[0] < 2**31 or table.shape[1] <= 0:
+        raise ValueError(f"row_gather: table of {tuple(table.shape)} rows")
+    _check(table, "table", torch.int32)
+    _check(idx, "idx", torch.int32, device=table.device)
+
+
+def row_gather_sum(table, idx, chunk: int = 128, lanes: int = 32, blocks: int = 0):
+    """The wrapped int32 sum of every element of rows idx[:n_used] of
+    `table`, n_used = (ND // chunk) * chunk (the harness's fori_loop over
+    whole chunks drops the tail ids).
+
+    table [NR, W] int32; idx [ND] int32 row ids in [0, NR).  `lanes` (1, 4,
+    8 or 32) threads read one row; `blocks` sets the grid and so the rows
+    in flight (0: one id per row group, capped at the blocks the card holds
+    at once).  Returns a 0-d int32 tensor on the
+    table's device, with no host sync."""
+    if chunk <= 0:
+        raise ValueError(f"row_gather_sum: chunk must be positive, got {chunk}")
+    _row_gather_check(table, idx, lanes, blocks)
+    if not table.is_cuda:
+        return row_gather_sum_plain(table, idx, chunk)
+    out = torch.zeros((), dtype=torch.int32, device=table.device)
+    n_used = idx.shape[0] // chunk * chunk
+    if n_used == 0:
+        return out
+    NR, W = table.shape
+    ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), n_used, lanes,
+                      blocks, out.data_ptr(), _stream(table), entry="_sum")
+    return out
+
+
+def row_gather_chain(table, idx, steps: int = 8, lanes: int = 32, blocks: int = 0):
+    """`steps` dependent row reads from each id: c <- (the int32-wrapped
+    sum of row c) floor-mod NR; returns the wrapped int32 sum of the last
+    ids (a 0-d int32 tensor, no host sync).  Arguments as in
+    `row_gather_sum`; the ids must lie in [0, NR)."""
+    if steps < 0:
+        raise ValueError(f"row_gather_chain: steps must be >= 0, got {steps}")
+    _row_gather_check(table, idx, lanes, blocks)
+    if not table.is_cuda:
+        return row_gather_chain_plain(table, idx, steps)
+    out = torch.zeros((), dtype=torch.int32, device=table.device)
+    N = idx.shape[0]
+    if N == 0:
+        return out
+    NR, W = table.shape
+    ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), N, steps, lanes,
+                      blocks, out.data_ptr(), _stream(table), entry="_chain")
+    return out
+
+
 KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
                                COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP,
-                               SEED_LOOKUP, GATHER_STATES)}
+                               SEED_LOOKUP, GATHER_STATES, ROW_GATHER)}

@@ -48,7 +48,9 @@ def _bind(device, local_rank: int) -> str:
 def maybe_initialize(device="cuda", backend: str | None = None) -> bool:
     """Initialize torch.distributed from the environment (idempotent).
 
-    Returns False and does nothing when no GENMAP_DIST_* variable is set."""
+    `device` None is a host-only process (`index`): its group is gloo and
+    no device is bound.  Returns False and does nothing when no
+    GENMAP_DIST_* variable is set."""
     if dist.is_initialized():
         return True
     coord = os.environ.get("GENMAP_DIST_COORDINATOR")
@@ -64,7 +66,7 @@ def maybe_initialize(device="cuda", backend: str | None = None) -> bool:
         local = int(os.environ.get("LOCAL_RANK", rank))
     else:
         return False
-    chosen = _bind(device, local)
+    chosen = "gloo" if device is None else _bind(device, local)
     dist.init_process_group(backend or chosen, init_method=init, rank=rank,
                             world_size=world)
     return True

@@ -477,3 +477,47 @@ def test_engine_split_cuda_equals_cpu(cuda):
                     == {k: sum(map(len, v)) for k, v in ce.stats["rung_sel"].items()})
         assert ge._tuned_pools == ce._tuned_pools and ge._tuned_pools
         assert ge._ext_sched == ce._ext_sched
+
+
+@pytest.mark.parametrize("W", [16, 52, 69, 128, 138])
+@pytest.mark.parametrize("lanes", kernels.ROW_GATHER_LANES)
+def test_row_gather(cuda, lanes, W):
+    """Both entries, every lanes variant, 16 B vector rows (W % 4 == 0) and
+    word rows, row sums wrapping negative, a DMA id count with a tail that
+    is dropped and one below a chunk, a capped grid, an unaligned table."""
+    from genmap_tpu_torch.experiments.row_gather import harness_inputs, negative_wrap_table
+
+    NR = 997
+    rng = np.random.default_rng(W)
+    for table in (harness_inputs(NR, W, 0, 0)[0], negative_wrap_table(NR, W, seed=W)):
+        t = torch.from_numpy(table)
+        tc = t.to(cuda)
+        shifted = torch.cat([tc.new_zeros(1), tc.flatten()])[1:].view(NR, W)
+        for ND in (4096, 4000, 100):
+            idx = torch.from_numpy(rng.integers(0, NR, ND).astype(np.int32))
+            want = kernels.row_gather_sum_plain(t, idx)
+            for tt in (tc, shifted):
+                for blocks in (0, 3):
+                    got = kernels.row_gather_sum(tt, idx.to(cuda), lanes=lanes, blocks=blocks)
+                    torch.cuda.synchronize()
+                    assert got.dtype == torch.int32 and got.dim() == 0
+                    _eq(got, want)
+        idx = torch.from_numpy(rng.integers(0, NR, 5000).astype(np.int32))
+        want = kernels.row_gather_chain_plain(t, idx, steps=8)
+        for tt in (tc, shifted):
+            for blocks in (0, 3):
+                got = kernels.row_gather_chain(tt, idx.to(cuda), steps=8, lanes=lanes,
+                                               blocks=blocks)
+                torch.cuda.synchronize()
+                _eq(got, want)
+
+
+def test_row_gather_entry_point_quick(cuda):
+    """The entry point at its CPU sizes on the card: every call it makes is
+    held against the plain version inside it; row_gather launches."""
+    from genmap_tpu_torch.experiments import row_gather as rg
+
+    kernels.reset_launches()
+    res = rg.run(cuda, quick=True, say=lambda _line: None)
+    assert kernels.launch_counts()["row_gather"] > 0
+    assert set(res["harness"]) == {"sum", "chain"} and res["sweep"]

@@ -33,6 +33,7 @@ _MODULES = (
     "genmap_tpu_torch.parallel.mesh",
     "genmap_tpu_torch.parallel.partmesh",
     "genmap_tpu_torch.parallel.dryrun",
+    "genmap_tpu_torch.experiments.row_gather",
 )
 
 
