@@ -3,6 +3,7 @@
 
     python3 chip_ab.py OTHER_CHECKOUT [--runs N] [--busy]
     python3 chip_ab.py --dimer [--runs N] [--busy]
+    python3 chip_ab.py OTHER_CHECKOUT --kernels
 
 Builds chip_smoke.py's 12.07 Mbp genome-like genome and its index once,
 then maps it with `genmap-tpu-torch map -K k -E e -fl -r` on the card from
@@ -20,17 +21,27 @@ schedule is wide, twins before the wide exact tiers) against
 dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
+With --kernels, no map: `compact` and `count_tail` of OTHER_CHECKOUT (A)
+and of this checkout (B) are timed in turns, A B B A, one process each, on
+the same seeded inputs (made on the card from a torch.Generator seed) at
+the shapes of KERNEL_CASES, with chip_smoke.py's `device_ms` (CUDA events,
+L2 flushed, median of 10); every process's outputs must hash the same.
+This checkout's processes also time `compact` at COMPACT_SWEEP's shapes
+with its middle-row and its long-row regime forced, the measurement
+behind `kernels.COMPACT_LONG_M`.
+
 Each process builds its kernels, maps once to warm up, then maps N times
 (default 3); it reports the compute time of each run (`map`'s own
 compute_s: index upload and seed tables excluded), the engine's dispatch /
 fetch seconds, batches, blocks per tier, kernel launches, peak allocated
 device bytes and its frequencies' checksum, which must agree across all
 processes of one configuration.  With --busy, one more map under
-torch.profiler gives the device-busy share of a whole map (kernel time
-over wall time, the profiler's overhead included in the wall time; it
-takes minutes per process at (100,2)).  Printed last: one JSON object with
-every process's numbers and the card's name and power limit.  Needs one
-CUDA card and nvcc.
+torch.profiler (device activity only, as chip_smoke.py's
+`profiled_device_times`) gives each kernel's device ms over a whole map
+(and that of PyTorch's own device ops, `other`) and the device-busy share
+(device time over the map's wall time, the profiler's overhead
+included).  Printed last: one JSON object with every process's numbers
+and the card's name and power limit.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CHILD = r"""
 import hashlib, json, os, sys
 root, idx, out, runs, probe = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5] == "1"
-dimer, k, e, busy = sys.argv[6], sys.argv[7], sys.argv[8], sys.argv[9] == "1"
+dimer, k, e, busy, here = sys.argv[6], sys.argv[7], sys.argv[8], sys.argv[9] == "1", sys.argv[10]
 sys.path.insert(0, root)
 import numpy as np, torch
 torch.set_num_threads(min(8, os.cpu_count() or 1))
@@ -86,25 +97,184 @@ for i in range(runs + 1):
                         probe_skipped=st["probe_skipped"],
                         launches=sum(kernels.launch_counts().values()),
                         peak_bytes=torch.cuda.max_memory_allocated()))
-share = None
+share, per_map = None, None
 if busy:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    import time
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     o = os.path.join(out, "profiled")
     os.makedirs(o)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        map_main(argv + ["-O", o + "/"], report={})
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    dev_s = sum((getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0))
-                for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA) / 1e6
-    share = dev_s / wall if dev_s > 0 else None
+    wall, calls, _grids, other_ms, _n = cs.profiled_device_times(
+        lambda: map_main(argv + ["-O", o + "/"], report={}))
+    per_map = {n: sum(c) for n, c in calls.items()}
+    per_map["other"] = other_ms
+    dev_ms = sum(per_map.values())
+    share = dev_ms / 1e3 / wall if dev_ms > 0 else None
 for r in res:
-    r["busy_share"] = share
+    r["busy_share"], r["device_ms_per_map"] = share, per_map
 print(json.dumps(res))
 """
+
+
+# (label, kernel, shape): compact R, rows, M, F, count, max row density;
+# count_tail B, J, Fe, with_exact, mean valid share.  The shapes of the
+# smoke's largest call of each timed regime (a mean density of 1.5 % is
+# that of its largest compact call), and three more
+KERNEL_CASES = (
+    ("compact largest, M=1024 (middle)", "compact", (4, 49152, 1024, 64, False, 0.03)),
+    ("compact count, M=8192 (long)", "compact", (5, 2048, 8192, 512, True, 0.2)),
+    ("compact M=8192 (long)", "compact", (4, 6144, 8192, 512, False, 0.03)),
+    ("compact M=262144 (long)", "compact", (5, 4, 262144, 16384, True, 0.2)),
+    ("compact M=16 (short)", "compact", (4, 100352, 16, 4, False, 0.6)),
+    ("compact M=16, 8192 rows (short)", "compact", (5, 8192, 16, 4, False, 1.0)),
+    ("count_tail largest, Fe=64", "count_tail", (8192, 6, 64, False, 0.24)),
+    ("count_tail Fe=1", "count_tail", (2048, 49, 1, False, 0.8)),
+    ("count_tail Fe=1, B=8192", "count_tail", (8192, 50, 1, False, 0.8)),
+    ("count_tail exact, Fe=64", "count_tail", (1003, 49, 64, True, 0.12)),
+)
+# compact shapes timed with each of the two wide-row regimes forced: rows
+# of the map's widths, 16 MB of validity per call or 64 rows, at a mean
+# density of 1.5 % (the smoke's largest call) and of 10 %
+COMPACT_SWEEP = tuple((4, rows, M, F, False, dmax)
+                      for M, F in ((1024, 64), (2048, 512), (4096, 1024), (8192, 512),
+                                   (16384, 4096), (65536, 4096))
+                      for rows in ((16 << 20) // M, 64)
+                      for dmax in (0.03, 0.2))
+N_TOTAL = 24_142_684  # the main genome's index (both strands)
+
+KCHILD = r"""
+import importlib.util, json, os, sys
+root, here, sweep = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+sys.path.insert(0, root)
+from genmap_tpu_torch import kernels
+if not os.path.abspath(kernels.__file__).startswith(os.path.abspath(root) + os.sep):
+    sys.exit(f"genmap_tpu_torch imported from {kernels.__file__}, not {root}")
+spec = importlib.util.spec_from_file_location("chip_ab_here", os.path.join(here, "chip_ab.py"))
+ab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab)
+print(json.dumps(ab.time_kernel_cases(kernels, here, sweep)))
+"""
+
+
+def kernel_inputs(kind, shape, dev, seed):
+    """Seeded inputs of one KERNEL_CASES / COMPACT_SWEEP case, made on the
+    card (the same in every process of one torch build)."""
+    import types
+
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*size):
+        return torch.rand(size, device=dev, generator=g)
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, size, device=dev, generator=g, dtype=torch.int64)
+
+    if kind == "compact":
+        R, rows, M, F, count, dmax = shape
+        arrays = ints(-2**31, 2**31 - 1, (R, rows, M)).to(torch.int32)
+        valid = (rand(rows, M) < rand(rows, 1) * dmax).to(torch.uint8)
+        return dict(arrays=arrays, valid=valid, F=F, count=count)
+    B, J, Fe, exact, share = shape
+    N = B * J * Fe
+    # each k-mer's valid states first, as compaction leaves them
+    nv = (rand(B * J, 1) * 2 * share * Fe).round()
+    valid = (torch.arange(Fe, device=dev)[None, :] < nv).to(torch.uint8).reshape(-1)
+    flo = ints(0, N_TOTAL - 5000, (N,))
+    st = torch.stack([flo, ints(0, N_TOTAL - 5000, (N,)), ints(1, 5000, (N,)),
+                      ints(0, 3, (N,))]).to(torch.int32)
+    strand = ints(-2**31, 2**31 - 1, (N_TOTAL // 128 + 1, 5)).to(torch.int32)
+    cnt = ints(0, J + 1, (B,)).to(torch.int32)
+    return dict(index=types.SimpleNamespace(strand_blocks=strand), st=st, valid=valid,
+                cnt=cnt, J=J, cap=255, rev_compl=True, with_exact=exact)
+
+
+def time_kernel_cases(kernels, here, sweep):
+    """In a child process: each KERNEL_CASES case timed with the imported
+    `kernels` (this checkout's or another's), with a hash of its outputs;
+    with `sweep`, COMPACT_SWEEP under each forced regime."""
+    import hashlib
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab",
+                                                  os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda")
+    kernels.build([kernels.KERNELS["compact"], kernels.KERNELS["count_tail"]])
+    res = []
+    for n, (label, kind, shape) in enumerate(KERNEL_CASES):
+        args = kernel_inputs(kind, shape, dev, 2026 + n)
+        fn = getattr(kernels, kind)
+        out = fn(**args)
+        out = out if isinstance(out, tuple) else (out,)
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        res.append(dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
+                        sha=h.hexdigest()[:16]))
+        del args, out
+    if sweep:
+        chunks = kernels.compact_chunks
+        for n, shape in enumerate(COMPACT_SWEEP):
+            args = kernel_inputs("compact", shape, dev, 4096 + n)
+            R, rows, M, F, _count, dmax = shape
+            long_nch = -(-((M + 15) // 16 + 1) // kernels.COMPACT_CHUNK_UNITS)
+            ms = {}
+            for regime, nch in (("middle", 0), ("long", long_nch)):
+                kernels.compact_chunks = lambda m, nch=nch: nch
+                ms[regime] = cs.device_ms(lambda: kernels.compact(**args))
+            kernels.compact_chunks = chunks
+            res.append(dict(label=f"sweep R={R} rows={rows} M={M} F={F} density<{dmax}",
+                            default=("long" if chunks(M) else "middle"), **ms))
+            del args
+    return res
+
+
+def run_kernels(other) -> int:
+    """--kernels: A B B A processes; per case each process's ms, the
+    median ratio A / B, and the sweep of this checkout's processes."""
+    order = [("A", os.path.abspath(other)), ("B", HERE), ("B", HERE), ("A", os.path.abspath(other))]
+    results = {}
+    for key, root in order:
+        r = subprocess.run([sys.executable, "-c", KCHILD, root, HERE, str(int(key == "B"))],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+            return 1
+        results.setdefault(key, []).append(json.loads(r.stdout.strip().splitlines()[-1]))
+    summary = {"cases": {}, "sweep": {}}
+    for i, (label, _kind, shape) in enumerate(KERNEL_CASES):
+        runs = {k: [p[i] for p in ps] for k, ps in results.items()}
+        shas = {x["sha"] for rs in runs.values() for x in rs}
+        if len(shas) != 1:
+            print(f"{label}: outputs differ between processes: {shas}", file=sys.stderr)
+            return 1
+        a = [x["ms"] for x in runs["A"]]
+        b = [x["ms"] for x in runs["B"]]
+        summary["cases"][label] = dict(shape=shape, A_ms=a, B_ms=b,
+                                       A_over_B=float(np.median(a) / np.median(b)))
+        print(f"kernels: {label} {shape}: A {a[0]:.4f} / {a[1]:.4f} ms, B {b[0]:.4f} / "
+              f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal)",
+              flush=True)
+    n = len(KERNEL_CASES)
+    for j in range(len(COMPACT_SWEEP)):
+        rows = [p[n + j] for p in results["B"]]
+        mid = [x["middle"] for x in rows]
+        lng = [x["long"] for x in rows]
+        summary["sweep"][rows[0]["label"]] = dict(middle_ms=mid, long_ms=lng,
+                                                  default=rows[0]["default"])
+        print(f"kernels: {rows[0]['label']}: middle {mid[0]:.4f} / {mid[1]:.4f} ms, long "
+              f"{lng[0]:.4f} / {lng[1]:.4f} ms (default {rows[0]['default']})", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    summary["card"] = smi.stdout.strip()
+    print(json.dumps(summary))
+    return 0
 
 
 def run_order(work, idx, order, runs, k, e, tag, busy):
@@ -115,7 +285,7 @@ def run_order(work, idx, order, runs, k, e, tag, busy):
         out = os.path.join(work, f"{tag}_out{n}")
         os.makedirs(out)
         r = subprocess.run([sys.executable, "-c", CHILD, root, idx, out, str(runs),
-                            probe, dimer, str(k), str(e), str(int(busy))],
+                            probe, dimer, str(k), str(e), str(int(busy)), HERE],
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
@@ -132,7 +302,8 @@ def run_order(work, idx, order, runs, k, e, tag, busy):
               f"{col([x['dispatch_s'] for x in rs], '.2f')} s; fetch "
               f"{col([x['fetch_s'] for x in rs], '.2f')} s; batches "
               f"{rs[0]['batches']}; launches {rs[0]['launches']}; peak allocated "
-              f"{rs[0]['peak_bytes']} B; device busy (profiled map) {rs[0]['busy_share']}; "
+              f"{rs[0]['peak_bytes']} B; device busy (profiled map) {rs[0]['busy_share']}, "
+              f"device ms per map {rs[0]['device_ms_per_map']}; "
               f"dimer tier 0 {rs[0]['dimer_tier']}; blocks per "
               f"tier {rs[0]['tier_blocks']}; probe skipped {rs[0]['probe_skipped']}",
               flush=True)
@@ -152,10 +323,16 @@ def main() -> int:
                    help="dimer tiers as by default against mono rows only")
     p.add_argument("--runs", type=int, default=3)
     p.add_argument("--busy", action="store_true",
-                   help="also profile one map per process (device-busy share)")
+                   help="also profile one map per process (device ms per kernel, busy share)")
+    p.add_argument("--kernels", action="store_true",
+                   help="time compact and count_tail against OTHER_CHECKOUT's (no map)")
     args = p.parse_args()
     if args.dimer == (args.other is not None):
         p.error("give either OTHER_CHECKOUT or --dimer")
+    if args.kernels:
+        if args.other is None:
+            p.error("--kernels needs OTHER_CHECKOUT")
+        return run_kernels(args.other)
     sys.path.insert(0, HERE)
     import chip_smoke
     from genmap_tpu_torch.cli.main import main as cli_main

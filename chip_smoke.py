@@ -37,7 +37,10 @@ or of the JAX package.  Phases (any failure exits non-zero):
                launched; the k-mers/s figure is their median
              then `map -K 24 -E 1` of the whole genome, whose tier 0 runs on
              the dimer rows (fused, J = 6): checked, then counted
-             (dimer_step must launch)
+             (dimer_step must launch); last, one more map at (24,1) and one
+             at (100,2) under torch.profiler (device activity only; not
+             timed runs): each kernel's launches, device ms per map, and
+             median and p90 device ms per call
   4. check   `map -d` on the CPU (plain PyTorch path) and on the card for a
              BED selection of >= 20,000 k-mers spread over the genome, half
              of them in repeat-rich windows (below the probe's gate, so the
@@ -96,8 +99,11 @@ or of the JAX package.  Phases (any failure exits non-zero):
              kernel's edge cases against its plain version; the read rates
              of candidate_step and dimer_step beside the sweep's
  12. kernels the largest checked call of each kernel (and of each
-             dimer_step variant) is timed on the card (kernel, plain
-             version, library call where one exists) beside its bound
+             dimer_step variant, of compact's short-row, long-row and
+             counting calls, of count_tail at Fe = 1 and with the zero-error
+             outputs) is timed on the card (kernel, plain version, library
+             call where one exists) beside its bound; compact must have been
+             checked in each regime with count on and off
 
 Output: a line per kernel (ten), `{"kernels": [...]}`, the card's name and
 power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
@@ -320,19 +326,33 @@ class _Checker:
 
 def timing_keys(name, args) -> list:
     """The kernel's entry (its largest call is its row in the kernels line),
-    and entries logged beside it: count_tail's zero-error outputs, and each
-    dimer_step variant."""
+    and entries logged beside it: compact's counting calls and its short-
+    and long-row regimes, count_tail's zero-error outputs and its calls at
+    Fe = 1, and each dimer_step variant."""
     if name == "count_tail" and args.get("with_exact"):
         return ["count_tail+exact"]
     if name == "probe_mass" and args["st"] is None:
         return ["probe_mass+reduced"]
-    if name == "compact" and args.get("count"):
-        return [name, "compact+count"]
+    if name == "compact":
+        regime = compact_regime(args["valid"].shape[1])
+        return ([name] + (["compact+count"] if args.get("count") else [])
+                + ([f"compact+{regime}"] if regime != "middle" else []))
+    if name == "count_tail" and args["valid"].numel() == args["cnt"].numel() * args["J"]:
+        return [name, "count_tail+fe1"]
     if name == "dimer_step":  # A, rank mode, mono steps, passthrough slots
         return [name, f"{name}+A={args['index'].nchars},"
                       f"{'exact' if args['exact'] else 'fast'},"
                       f"mono={args['with_mono']},pass={args['with_pass']}"]
     return [name]
+
+
+def compact_regime(M: int) -> str:
+    """The regime `kernels.compact` takes for rows of M slots."""
+    from genmap_tpu_torch import kernels
+
+    if M <= kernels.COMPACT_SHORT_M:
+        return "short"
+    return "long" if kernels.compact_chunks(M) else "middle"
 
 
 def variant(name, args) -> str:
@@ -342,7 +362,8 @@ def variant(name, args) -> str:
         return (f"A={args['index'].nchars} R={args['st'].shape[0]} "
                 f"{'exact' if args['exact'] else 'fast'}")
     if name == "compact":
-        return f"M={args['arrays'].shape[2]} F={args['F']} count={bool(args.get('count'))}"
+        M = args["valid"].shape[1]
+        return f"M={M} F={args['F']} count={bool(args.get('count'))} {compact_regime(M)}"
     if name == "seed_lookup":
         return (f"P={args['a_pos'].numel()} t_seed={args['t_seed']} Fp={args['Fp']} "
                 f"A={args['index'].nchars}")
@@ -416,14 +437,25 @@ def kernel_work(name, args):
                  f"of {n_rows} distinct sub-rows")
         return nbytes, nops, shape, n_reads
     if name == "compact":
+        # without count a row needs its validity only up to its (F+1)-th
+        # valid slot (the kernel stops reading there)
         R, nrows, M = args["arrays"].shape
         F = args["F"]
-        kept = int(args["valid"].bool().sum(dim=-1).clamp(max=F).sum())
-        nbytes = (nrows * M + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
+        v = args["valid"].bool()
+        nvalid = v.sum(dim=-1)
+        kept = int(nvalid.clamp(max=F).sum())
+        if args.get("count") or nrows * M == 0:
+            n_read = nrows * M
+        else:
+            over = (torch.cumsum(v, dim=-1, dtype=torch.int32) > F).to(torch.uint8)
+            n_read = int(torch.where(nvalid > F, over.argmax(dim=-1) + 1, M).sum())
+        nbytes = (n_read + R * kept * 4 + R * nrows * F * 4 + nrows * F + nrows
                   + (4 * nrows if args.get("count") else 0))
-        nops = 6 * nrows * M  # ballot, rank popcount, compare per slot
+        nops = 6 * n_read  # byte compare, popcount, scan share per slot
         return nbytes, nops, (f"R={R} rows={nrows} M={M} F={F}"
-                              f"{' count' if args.get('count') else ''}"), 0
+                              f"{' count' if args.get('count') else ''}, "
+                              f"{compact_regime(M)} rows, {n_read} validity "
+                              f"bytes needed"), 0
     if name == "seed_lookup":
         # per (block, plan): t_seed needle bytes, three 4-byte table reads;
         # the [5, B, Fp] states and [B, Fp] validity written
@@ -592,10 +624,18 @@ def library_fn(name, args):
 
 
 def time_kernels(checker, launches):
-    """Phase 12: the largest checked call of each kernel (and of count_tail's
-    zero-error variant), timed; returns the kernels line's rows."""
+    """Phase 12: the largest checked call of each kernel (and of each entry
+    of `timing_keys`), timed; returns the kernels line's rows."""
     from genmap_tpu_torch import kernels
 
+    missing = [k for k in ("compact+count", "compact+short", "compact+long",
+                           "count_tail+exact", "count_tail+fe1") if k not in checker.largest]
+    if missing:
+        raise AssertionError(f"no call was checked for {missing}")
+    seen = {(v.split()[-1], "count=True" in v) for v in checker.variants["compact"]}
+    unseen = {(r, c) for r in ("short", "middle", "long") for c in (False, True)} - seen
+    if unseen:
+        raise AssertionError(f"compact regimes (regime, count) never checked: {sorted(unseen)}")
     rows = []
     extra = sorted(k for k in checker.largest if "+" in k)
     for key in NAMES + tuple(extra):
@@ -939,6 +979,115 @@ def counted_map(argv, report=None, mesh=None):
     return counts
 
 
+# second grids of one wrapper call: their device time adds to the call's
+SECOND_GRIDS = ("compact_long_write_kernel",)
+
+
+def kernel_symbols() -> dict:
+    """Each `__global__` function of csrc/ -> the kernel whose source holds it."""
+    import re
+
+    from genmap_tpu_torch import kernels
+
+    out = {}
+    for name, k in kernels.KERNELS.items():
+        with open(k.source_path) as f:
+            for sym in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                  f.read()):
+                out[sym] = name
+    return out
+
+
+def profiled_device_times(run):
+    """run() under torch.profiler, device activity only.  Returns its wall
+    seconds (to a synchronize), each port kernel's device ms per call (a
+    call's grids summed), each kernel symbol's grids and ms, and the ms and
+    count of every other device op (PyTorch's own kernels, copies, fills)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    syms = kernel_symbols()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    calls, by_sym, other_ms, n_other = {}, {}, 0.0, 0
+    evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    for ev in evs:
+        m = re.match(r"(?:void\s+)?(\w+)", ev.name)
+        sym = m.group(1) if m else ev.name
+        ms = ev.time_range.elapsed_us() / 1e3
+        name = syms.get(sym)
+        if name is None:
+            other_ms += ms
+            n_other += 1
+            continue
+        n, t_ = by_sym.get(sym, (0, 0.0))
+        by_sym[sym] = (n + 1, t_ + ms)
+        if sym in SECOND_GRIDS and calls.get(name):
+            calls[name][-1] += ms
+        else:
+            calls.setdefault(name, []).append(ms)
+    return wall, calls, by_sym, other_ms, n_other
+
+
+def device_time_map(idx, work, k: int, e: int, want_freq, want_launches):
+    """One more `map -K k -E e` of the main genome (not a timed run) under
+    torch.profiler, device activity only: for each kernel of the port its
+    launches, its device ms over the whole map (by grid where it has
+    several), and the median and p90 device ms of one call; beside them the
+    device time of everything else the map ran on the card.  Frequencies
+    and launch counts must equal the counted runs'.  Returns {kernel:
+    numbers} and the totals."""
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.cli.map_cmd import map_main
+
+    out = os.path.join(work, f"devtime_{k}_{e}")
+    os.makedirs(out)
+    report = {}
+    argv = ["-I", idx, "-O", out + "/", "-K", str(k), "-E", str(e), "-fl", "-r",
+            "--device", "cuda"]
+    rcs = []
+    kernels.reset_launches()
+    t = time.perf_counter()
+    wall, calls, by_sym, other_ms, n_other = profiled_device_times(
+        lambda: rcs.append(map_main(argv, report=report)))
+    read_s = time.perf_counter() - t - wall
+    counts = kernels.launch_counts()
+    if rcs != [0]:
+        raise AssertionError(f"profiled map -K {k} -E {e} exited {rcs}")
+    freq = np.fromfile(os.path.join(out, "yeastlike.genmap.freq16"), dtype="<u2")
+    if not np.array_equal(freq, want_freq) or counts != want_launches:
+        raise AssertionError(f"profiled ({k},{e}) map differs from the counted runs")
+    syms = kernel_symbols()
+    res = {}
+    for name in sorted(calls, key=lambda n: -sum(calls[n])):
+        per = np.asarray(calls[name])
+        grids = {s: v for s, v in by_sym.items() if syms[s] == name}
+        res[name] = dict(launches=counts[name], calls=len(per), ms_per_map=float(per.sum()),
+                         median_ms=float(np.median(per)), p90_ms=float(np.percentile(per, 90)),
+                         grids={s: dict(n=n, ms=ms) for s, (n, ms) in grids.items()})
+        split = ("; by grid " + ", ".join(f"{s} {n}x {ms:.3f} ms" for s, (n, ms) in grids.items())
+                 if len(grids) > 1 else "")
+        log(f"devtime: ({k},{e}) {name}: {counts[name]} launches, {len(per)} calls traced, "
+            f"{per.sum():.3f} ms device per map, per call median {np.median(per):.4f} ms "
+            f"p90 {np.percentile(per, 90):.4f} ms{split}")
+    port_ms = sum(r["ms_per_map"] for r in res.values())
+    log(f"devtime: ({k},{e}) port kernels {port_ms:.3f} ms device per map; PyTorch's own "
+        f"kernels, copies and fills {other_ms:.3f} ms in {n_other} device ops; map "
+        f"compute {report['compute_s']:.3f} s, wall {wall:.3f} s (profiled); trace read "
+        f"in {read_s:.1f} s")
+    if not res:
+        log(f"devtime: ({k},{e}) device time not measured (the trace holds no kernel)")
+    return dict(kernels=res, port_ms=port_ms, other_ms=other_ms, other_ops=n_other,
+                compute_s=report["compute_s"])
+
+
 def read_tree(d):
     out = {}
     for fn in sorted(os.listdir(d)):
@@ -1020,10 +1169,13 @@ def main_path(dev, work, checker):
     log(f"main: dimer flagged sub-block fraction {data.parts[0].dimer_flag_frac:.6f}; "
         f"dimer tier 0 {st['dimer_tier']}; ladder {ladder_str(st['tiers'])}")
     short, short_freq = short_map(idx, work, checker)
+    short["device_per_map"] = device_time_map(idx, work, 24, 1, short_freq,
+                                              short["launches"])
+    devtime = device_time_map(idx, work, K, E, gpu_freq, launches)
     summary = dict(kmers_per_s_median=float(np.median(runs)), kmers_per_s_runs=runs,
                    n_kmers=report["n_kmers"], resident_bytes=report["resident_bytes"],
                    probe_skipped=st["probe_skipped"], tier_blocks=st["tier_blocks"],
-                   map_24_1=short)
+                   device_per_map=devtime, map_24_1=short)
     ref = {(K, E): (gpu_freq, launches), (24, 1): (short_freq, short["launches"])}
     return launches, summary, idx, chroms, gpu_freq, ref
 

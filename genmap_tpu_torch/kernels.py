@@ -349,8 +349,25 @@ def candidate_step(index, st, valid, *, per_block: int, inner: int, nch,
 
 COMPACT = Kernel(
     "compact", "compact.cu", "genmap_tpu/search/engine.py:168",
-    [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P],
+    [_P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P],
 )
+COMPACT_SHORT_M = 32  # rows up to this long: a lane per slot, rows share a warp
+# rows from this long: chunks over many blocks (`chip_ab.py --kernels`'s
+# sweep: from M = 4,096 up faster than a warp segment per row at 64 rows
+# and at 16 MB of validity per call, bar one case 5 % slower; below it
+# slower at 16 MB)
+COMPACT_LONG_M = 4096
+COMPACT_CHUNK_UNITS = 256  # 16-byte validity units per chunk (csrc/compact.cu)
+
+
+def compact_chunks(M: int) -> int:
+    """Chunks per row of `compact`'s long-row regime for rows of M slots,
+    or 0 for the short and middle regimes (a segment of a warp per
+    row)."""
+    if M < COMPACT_LONG_M:
+        return 0
+    units = (M + 15) // 16 + 1  # a row off 16-byte alignment spans one more
+    return -(-units // COMPACT_CHUNK_UNITS)
 
 
 def compact_plain(arrays, valid, F: int, count: bool = False):
@@ -373,7 +390,9 @@ def compact(arrays, valid, F: int, count: bool = False):
     arrays: [R, rows, M] int32 operands; valid: [rows, M] uint8.  Returns
     (out [R, rows, F] int32, out_valid [rows, F] uint8, overflow [rows]
     uint8 = more than F valid), and with `count` also each row's valid
-    count before the cut (nvalid [rows] int32).  Unused slots are zero."""
+    count before the cut (nvalid [rows] int32).  Unused slots are zero.
+    The kernel's work split follows M: short rows (M <= 32), middle rows,
+    long rows (`compact_chunks`)."""
     if not arrays.is_cuda:
         return compact_plain(arrays, valid, F, count)
     dev = arrays.device
@@ -387,10 +406,13 @@ def compact(arrays, valid, F: int, count: bool = False):
     res = (out, out_valid, ovf) + ((nvalid,) if count else ())
     if rows == 0:
         return res
+    nch = compact_chunks(M)
+    chunk_cnt = torch.empty((rows * nch,), dtype=torch.int32, device=dev) if nch else None
     COMPACT.launch(
         arrays.data_ptr(), valid.data_ptr(), R, rows, M, F, out.data_ptr(),
         out_valid.data_ptr(), ovf.data_ptr(),
-        None if nvalid is None else nvalid.data_ptr(), _stream(arrays),
+        None if nvalid is None else nvalid.data_ptr(),
+        None if chunk_cnt is None else chunk_cnt.data_ptr(), nch, _stream(arrays),
     )
     return res
 

@@ -49,12 +49,14 @@ def _tier(t):
     return te.Tier(t.f_search, t.f_collect, t.f_extend, exact=t.exact)
 
 
-@pytest.mark.parametrize("F,M", [(1, 16), (4, 16), (8, 40), (64, 96), (16, 300)])
+@pytest.mark.parametrize("F,M", [(1, 16), (4, 16), (8, 40), (64, 96), (16, 300),
+                                 (4096, 16385)])
 def test_compact_regimes(F, M):
     """F = 1 (argmax), one-hot (F < 64, M < 256) and sort (F >= 64 or
-    M >= 256) regimes of the JAX function."""
+    M >= 256) regimes of the JAX function; the last case's rows are long
+    enough for the CUDA kernel's long-row regime."""
     rng = np.random.default_rng(F * 1000 + M)
-    rows = 50
+    rows = 50 if M < kernels.COMPACT_LONG_M else 4
     arrays = rng.integers(0, 2**31 - 1, (4, rows, M)).astype(np.int32)
     valid = rng.random((rows, M)) < rng.random((rows, 1))
     jout, jvalid, jovf = je._compact(
@@ -70,6 +72,39 @@ def test_compact_regimes(F, M):
             np.asarray(jout[r]).astype(np.int64)[jvalid],
             tr.u32(tout[r]).numpy()[jvalid],
         )
+
+
+@pytest.mark.parametrize("Fe", [1, 6])
+@pytest.mark.parametrize("rev_compl", [True, False])
+@pytest.mark.parametrize("with_exact", [False, True])
+def test_count_tail(Fe, rev_compl, with_exact):
+    """Per-k-mer counts (and zero-error interval outputs) from final states:
+    Fe = 1 (every f_extend = 1 tier) and Fe = 6."""
+    _data, ji, ti, _jt, _tt = _pair(4)
+    rng = np.random.default_rng(10 * Fe + 2 * rev_compl + with_exact)
+    B, J, cap = 9, 7, 255
+    n = ji.n_total
+    flo = rng.integers(0, n, (B, J, Fe))
+    size = np.minimum(rng.integers(1, 400, (B, J, Fe)), n - flo)
+    rlo = rng.integers(0, n, (B, J, Fe))
+    err = rng.integers(0, 3, (B, J, Fe))
+    valid = rng.random((B, J, Fe)) < 0.7
+    cnt = rng.integers(0, J + 1, B).astype(np.int32)
+    U = jnp.uint32
+    want = je._count_tail(
+        ji, (jnp.asarray(flo, U), jnp.asarray(rlo, U), jnp.asarray(size, U),
+             jnp.asarray(err, U), jnp.asarray(valid)),
+        jnp.asarray(cnt), J, cap, rev_compl, with_exact=with_exact)
+    st = np.stack([flo, rlo, size, err]).astype(np.uint32).view(np.int32)
+    got = te._count_tail(ti, (torch.from_numpy(st), torch.from_numpy(valid.astype(np.uint8))),
+                         torch.from_numpy(cnt), J, cap, rev_compl, with_exact)
+    got = got if with_exact else (got,)
+    keys = ("hits", "exact_size", "exact_size_total", "exact_flo")[:len(got)]
+    for key, g in zip(keys, got):
+        np.testing.assert_array_equal(np.asarray(want[key]).astype(np.int64),
+                                      tr.u32(g).numpy() if key != "hits" else
+                                      g.numpy().astype(np.int64), err_msg=key)
+    assert np.asarray(want["hits"]).any()
 
 
 @pytest.mark.parametrize("alpha", [4, 5])

@@ -120,19 +120,50 @@ def test_candidate_step(cuda, alpha, exact):
             assert ref[2].any()  # the far path was exercised
 
 
-@pytest.mark.parametrize("R,rows,M,F", [
+# compact's regimes (kernels.compact_chunks): short rows (M <= 32), middle
+# rows (a warp segment per row) and long rows (chunks over blocks, from
+# M = 4096); F = 1, below, at and above M; row starts off 16-byte alignment
+# (M = 5, 20, 30, 96, 513 ...); one row
+_COMPACT_CASES = [
     (5, 300, 16, 4), (4, 300, 16, 1), (4, 100, 40, 8), (5, 50, 256, 64),
     (4, 20, 1000, 300), (4, 30, 7, 16),
-])
-def test_compact(cuda, R, rows, M, F):
-    rng = np.random.default_rng(rows + M + F)
+    (4, 70, 1, 1), (5, 40, 2, 1), (4, 33, 5, 2), (4, 64, 20, 20), (4, 64, 30, 6),
+    (4, 33, 31, 8), (4, 33, 32, 32), (5, 40, 33, 40), (4, 64, 96, 6),
+    (4, 50, 511, 64), (4, 50, 512, 512), (4, 50, 513, 1), (4, 1, 1000, 1000),
+    (4, 300, 4095, 64), (4, 3, 4096, 1024), (4, 2, 4097, 5000), (4, 1, 4096, 4096),
+    (4, 3, 16383, 4096), (4, 2, 16384, 16384), (5, 1, 262144, 16384),
+]
+
+
+def _compact_inputs(seed, R, rows, M):
+    """Operands, and validity at four densities (none, sparse, a random
+    density per row, all), each also at an odd byte offset so that rows do
+    not start 16-byte aligned; valid bytes are nonzero values other than
+    1."""
+    rng = np.random.default_rng(seed)
     arr = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, rows, M)).astype(np.int32))
-    valid = torch.from_numpy((rng.random((rows, M)) < rng.random((rows, 1))).astype(np.uint8))
-    ref = kernels.compact(arr, valid, F)
-    got = kernels.compact(arr.to(cuda), valid.to(cuda), F)
-    torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        _eq(a, b)
+    for dens in (np.zeros((rows, 1)), np.full((rows, 1), 0.02), rng.random((rows, 1)),
+                 np.ones((rows, 1))):
+        v = (rng.random((rows, M)) < dens) * rng.integers(1, 256, (rows, M))
+        for off in (0, 3):
+            buf = torch.zeros(rows * M + off, dtype=torch.uint8)
+            valid = buf[off:].view(rows, M)
+            valid.copy_(torch.from_numpy(v.astype(np.uint8)))
+            yield arr, valid
+
+
+@pytest.mark.parametrize("R,rows,M,F", _COMPACT_CASES)
+def test_compact(cuda, R, rows, M, F):
+    for arr, valid in _compact_inputs(rows + M + F, R, rows, M):
+        ref = kernels.compact(arr, valid, F)
+        buf = torch.zeros(valid.numel() + 3, dtype=torch.uint8, device=cuda)
+        off = valid.storage_offset()
+        gvalid = buf[off:off + valid.numel()].view(valid.shape)
+        gvalid.copy_(valid)
+        got = kernels.compact(arr.to(cuda), gvalid, F)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _eq(a, b)
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
@@ -142,7 +173,7 @@ def test_count_tail(cuda, alpha, rev_compl, cap):
     data, gi, ci = _indexes(alpha, cuda)
     rng = np.random.default_rng(cap + alpha)
     B, J = 40, 7
-    for Fe in (1, 4, 64):
+    for Fe in (1, 2, 3, 4, 6, 31, 32, 33, 64, 512):
         N = B * J * Fe
         st, valid = _states(rng, gi.n_total, N, 4, 1, wide=True)
         cnt = torch.from_numpy(rng.integers(0, J + 1, B).astype(np.int32))
@@ -159,7 +190,7 @@ def test_count_tail_exact(cuda, alpha, rev_compl):
     data, gi, ci = _indexes(alpha, cuda)
     rng = np.random.default_rng(7 + alpha + 2 * rev_compl)
     B, J = 40, 7
-    for Fe in (1, 4, 64):
+    for Fe in (1, 2, 3, 4, 6, 31, 32, 33, 64, 512):
         N = B * J * Fe
         st, valid = _states(rng, gi.n_total, N, 4, 1, wide=True)
         cnt = torch.from_numpy(rng.integers(0, J + 1, B).astype(np.int32))
@@ -385,19 +416,21 @@ def test_engine_multipart_dimer_cuda_equals_cpu(cuda):
 
 @pytest.mark.parametrize("R,rows,M,F", [
     (5, 300, 16, 4), (4, 300, 16, 1), (5, 50, 256, 64), (4, 20, 1000, 300),
-])
+] + _COMPACT_CASES[6:])
 def test_compact_count(cuda, R, rows, M, F):
     """The valid count before the cut (the occupancy and survivor counts)."""
-    rng = np.random.default_rng(7 * rows + M + F)
-    arr = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (R, rows, M)).astype(np.int32))
-    valid = torch.from_numpy((rng.random((rows, M)) < rng.random((rows, 1))).astype(np.uint8))
-    ref = kernels.compact(arr, valid, F, count=True)
-    got = kernels.compact(arr.to(cuda), valid.to(cuda), F, count=True)
-    torch.cuda.synchronize()
-    assert len(got) == 4
-    for a, b in zip(got, ref):
-        _eq(a, b)
-    _eq(ref[3], valid.sum(-1).to(torch.int32))
+    for arr, valid in _compact_inputs(7 * rows + M + F, R, rows, M):
+        ref = kernels.compact(arr, valid, F, count=True)
+        buf = torch.zeros(valid.numel() + 3, dtype=torch.uint8, device=cuda)
+        off = valid.storage_offset()
+        gvalid = buf[off:off + valid.numel()].view(valid.shape)
+        gvalid.copy_(valid)
+        got = kernels.compact(arr.to(cuda), gvalid, F, count=True)
+        torch.cuda.synchronize()
+        assert len(got) == 4
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        _eq(ref[3], (valid != 0).sum(-1).to(torch.int32))
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
