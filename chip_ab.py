@@ -21,14 +21,22 @@ schedule is wide, twins before the wide exact tiers) against
 dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
-With --kernels, no map: `compact` and `count_tail` of OTHER_CHECKOUT (A)
-and of this checkout (B) are timed in turns, A B B A, one process each, on
-the same seeded inputs (made on the card from a torch.Generator seed) at
-the shapes of KERNEL_CASES, with chip_smoke.py's `device_ms` (CUDA events,
-L2 flushed, median of 10); every process's outputs must hash the same.
-This checkout's processes also time `compact` at COMPACT_SWEEP's shapes
-with its middle-row and its long-row regime forced, the measurement
-behind `kernels.COMPACT_LONG_M`.
+With --kernels, no map: `candidate_step`, `extract_needles`, `compact` and
+`count_tail` of OTHER_CHECKOUT (A) and of this checkout (B) are timed in
+turns, A B B A, one process each, on the same seeded inputs (made on the
+card from a torch.Generator seed; candidate_step reads a random rank table
+of the main index's size) at the shapes of KERNEL_CASES, with
+chip_smoke.py's `device_ms` (CUDA events, L2 flushed, median of 10; and
+with L2 warm, queued behind a spin); every process's outputs must hash
+the same (candidate_step's as its output contract defines them: this
+checkout's `kernels.candidate_step_view`).  This checkout's processes also
+time `candidate_step` and `extract_needles` at each of their cases in
+VARIANTS (their sources built with CS_LANES / CS_COOP_MAX and EN_THREADS /
+EN_WIDE_BYTES overridden, the measurement behind those defaults; outputs
+must equal the kernel's), two memsets of candidate_step's valid2 and far
+as a floor for the bytes every state costs, and `compact` at
+COMPACT_SWEEP's shapes with its middle-row and its long-row regime forced
+(behind `kernels.COMPACT_LONG_M`).
 
 Each process builds its kernels, maps once to warm up, then maps N times
 (default 3); it reports the compute time of each run (`map`'s own
@@ -117,11 +125,36 @@ print(json.dumps(res))
 """
 
 
-# (label, kernel, shape): compact R, rows, M, F, count, max row density;
-# count_tail B, J, Fe, with_exact, mean valid share.  The shapes of the
-# smoke's largest call of each timed regime (a mean density of 1.5 % is
-# that of its largest compact call), and three more
+# (label, kernel, shape): candidate_step A, R, B, per_block, inner, G,
+# exact, mean valid share of a frontier row (its valid states first; 1.0:
+# every state valid, intervals under 64 symbols), share of active groups;
+# extract_needles B, Ln, N mask; compact R, rows, M, F, count, max row
+# density; count_tail B, J, Fe, with_exact, mean valid share.  The shapes
+# of the smoke's largest call of each timed variant or regime (a mean
+# density of 1.5 % is that of its largest compact call), and a few more
 KERNEL_CASES = (
+    ("candidate_step largest, R=5 exact", "candidate_step",
+     (4, 5, 768, 4096, 4096, 2, True, 0.00243, 1.0)),
+    ("candidate_step R=5 fast", "candidate_step",
+     (4, 5, 2048, 512, 512, 2, False, 0.01669, 1.0)),
+    ("candidate_step R=4 fast, passthrough", "candidate_step",
+     (4, 4, 1024, 784, 16, 49, False, 0.0878, 0.69)),
+    ("candidate_step R=4 exact, passthrough", "candidate_step",
+     (4, 4, 837, 3136, 64, 49, True, 0.01565, 0.69)),
+    ("candidate_step R=4 fast, passthrough, B=128", "candidate_step",
+     (4, 4, 128, 784, 16, 49, False, 0.0878, 0.69)),
+    ("candidate_step R=5 exact, B=1024, F=64", "candidate_step",
+     (4, 5, 1024, 64, 64, 3, True, 0.3, 1.0)),
+    ("candidate_step no valid state, R=5", "candidate_step",
+     (4, 5, 768, 4096, 4096, 2, True, 0.0, 1.0)),
+    ("candidate_step dense (every state valid)", "candidate_step",
+     (4, 5, 768, 4096, 4096, 2, True, 1.0, 1.0)),
+    ("extract_needles largest, Ln=29", "extract_needles", (8334, 29, False)),
+    ("extract_needles Ln=148", "extract_needles", (8192, 148, False)),
+    ("extract_needles Ln=148, B=1024", "extract_needles", (1024, 148, False)),
+    ("extract_needles Ln=148, B=256", "extract_needles", (256, 148, False)),
+    ("extract_needles Ln=29, B=512", "extract_needles", (512, 29, False)),
+    ("extract_needles Ln=148, B=1024, N mask", "extract_needles", (1024, 148, True)),
     ("compact largest, M=1024 (middle)", "compact", (4, 49152, 1024, 64, False, 0.03)),
     ("compact count, M=8192 (long)", "compact", (5, 2048, 8192, 512, True, 0.2)),
     ("compact M=8192 (long)", "compact", (4, 6144, 8192, 512, False, 0.03)),
@@ -133,6 +166,21 @@ KERNEL_CASES = (
     ("count_tail Fe=1, B=8192", "count_tail", (8192, 50, 1, False, 0.8)),
     ("count_tail exact, Fe=64", "count_tail", (1003, 49, 64, True, 0.12)),
 )
+# Variants of this checkout's kernels timed at each of their cases: the
+# kernel's source built with its macros overridden (nvcc -D) into a library
+# of its own.  candidate_step: CS_LANES, lanes per cooperatively read state
+# (0, the default: 32 / the warp's working states), and CS_COOP_MAX, the
+# most working states a warp reads cooperatively (8; 0: always a lane per
+# state); extract_needles: EN_THREADS (256) and EN_WIDE_BYTES, the output
+# size from which a thread writes 16 bytes, smaller outputs a byte (512 KiB;
+# 0: always, where rows allow; 2^30: never)
+VARIANTS = {
+    "candidate_step": ({"CS_COOP_MAX": 4}, {"CS_COOP_MAX": 16}, {"CS_COOP_MAX": 32},
+                       {"CS_LANES": 8, "CS_COOP_MAX": 4}, {"CS_LANES": 4},
+                       {"CS_LANES": 16, "CS_COOP_MAX": 2}, {"CS_COOP_MAX": 0}),
+    "extract_needles": ({"EN_WIDE_BYTES": 0}, {"EN_WIDE_BYTES": 1 << 30},
+                        {"EN_THREADS": 128}),
+}
 # compact shapes timed with each of the two wide-row regimes forced: rows
 # of the map's widths, 16 MB of validity per call or 64 rows, at a mean
 # density of 1.5 % (the smoke's largest call) and of 10 %
@@ -172,6 +220,36 @@ def kernel_inputs(kind, shape, dev, seed):
     def ints(lo, hi, size):
         return torch.randint(lo, hi, size, device=dev, generator=g, dtype=torch.int64)
 
+    if kind == "candidate_step":
+        A, R, B, per_block, inner, G, exact, share, act_share = shape
+        N = B * per_block
+        subw = 52 if A == 4 else 69
+        top = 64 if share >= 1 else 600
+        table = ints(-2**31, 2**31 - 1, (N_TOTAL // 512 + 2, 2 * subw)).to(torch.int32)
+        index = types.SimpleNamespace(fwd_blocks=table, nchars=A, has_n=A == 5,
+                                      C=ints(0, N_TOTAL, (A,)).to(torch.int32))
+        st = torch.stack([ints(0, N_TOTAL - top, (N,)), ints(0, N_TOTAL - top, (N,)),
+                          ints(1, top, (N,)), ints(0, 3, (N,)), ints(0, G, (N,))])[:R]
+        if share >= 1:
+            valid = torch.ones(N, dtype=torch.uint8, device=dev)
+        else:  # each row's valid states first, as compaction leaves them
+            nv = (rand(N // inner, 1) * 2 * share * inner).round()
+            valid = (torch.arange(inner, device=dev)[None, :] < nv).to(torch.uint8).reshape(-1)
+        act = (rand(G) < act_share).to(torch.uint8)
+        act[0] = 1
+        return dict(index=index, st=st.to(torch.int32).contiguous(), valid=valid,
+                    per_block=per_block, inner=inner,
+                    nch=ints(0, 5, (B, G)).to(torch.uint8),
+                    right=ints(0, 2, (G,)).to(torch.uint8), act=act,
+                    u=torch.full((G,), 2, dtype=torch.int32, device=dev),
+                    lreq=torch.zeros(G, dtype=torch.int32, device=dev), exact=exact)
+    if kind == "extract_needles":
+        B, Ln, has_n = shape
+        text = N_TOTAL // 2
+        words = ints(-2**31, 2**31 - 1, (text // 16 + 1,)).to(torch.int32)
+        nwords = ints(-2**31, 2**31 - 1, (text // 32 + 1 if has_n else 0,)).to(torch.int32)
+        return dict(words=words, nwords=nwords, starts=ints(0, text - Ln, (B,)).to(torch.int32),
+                    Ln=Ln, limit=text, text_limit=text)
     if kind == "compact":
         R, rows, M, F, count, dmax = shape
         arrays = ints(-2**31, 2**31 - 1, (R, rows, M)).to(torch.int32)
@@ -191,33 +269,96 @@ def kernel_inputs(kind, shape, dev, seed):
                 cnt=cnt, J=J, cap=255, rev_compl=True, with_exact=exact)
 
 
+def build_variants(kernels):
+    """VARIANTS' libraries (one nvcc per variant, all started together):
+    {kernel: [(tag, Kernel)]}, each Kernel bound to its own library."""
+    import hashlib
+
+    built, procs = {}, []
+    for name, sweep in VARIANTS.items():
+        base = kernels.KERNELS[name]
+        stem, ext = os.path.splitext(base.lib_path())
+        for defs in sweep:
+            tag = ",".join(f"{k}={v}" for k, v in defs.items())
+            path = f"{stem}-{hashlib.sha256(tag.encode()).hexdigest()[:8]}{ext}"
+            k = kernels.Kernel(base.name, base.source, base.replaces, None, base.entries)
+            k.lib_path = lambda path=path: path
+            built.setdefault(name, []).append((tag, k))
+            if not os.path.exists(path):
+                cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(f"-D{d}={v}" for d, v in
+                                                              defs.items()),
+                       "-I", kernels.CSRC, "-o", f"{path}.tmp", base.source_path]
+                procs.append((path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT)))
+    for path, p in procs:
+        log = p.communicate()[0].decode(errors="replace")
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {path}:\n{log[-4000:]}")
+        os.replace(f"{path}.tmp", path)
+    return built
+
+
 def time_kernel_cases(kernels, here, sweep):
     """In a child process: each KERNEL_CASES case timed with the imported
     `kernels` (this checkout's or another's), with a hash of its outputs;
-    with `sweep`, COMPACT_SWEEP under each forced regime."""
+    with `sweep`, candidate_step's and extract_needles' cases in each of
+    VARIANTS (outputs equal to the kernel's) and COMPACT_SWEEP under each
+    forced regime."""
     import hashlib
     import importlib.util
 
     import torch
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_ab",
-                                                  os.path.join(here, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    cs = load("chip_smoke_ab", os.path.join(here, "chip_smoke.py"))
+    # this checkout's contract view, whichever checkout's kernels are timed
+    contract = load("kernels_contract", os.path.join(here, "genmap_tpu_torch", "kernels.py"))
     dev = torch.device("cuda")
-    kernels.build([kernels.KERNELS["compact"], kernels.KERNELS["count_tail"]])
+    kernels.build([kernels.KERNELS[k] for k in
+                   ("candidate_step", "extract_needles", "compact", "count_tail")])
+    variants = build_variants(kernels) if sweep else {}
+
+    def digest(kind, out, args):
+        out = out if isinstance(out, tuple) else (out,)
+        if kind == "candidate_step":
+            out = contract.candidate_step_view(out, **args)
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     res = []
     for n, (label, kind, shape) in enumerate(KERNEL_CASES):
         args = kernel_inputs(kind, shape, dev, 2026 + n)
         fn = getattr(kernels, kind)
-        out = fn(**args)
-        out = out if isinstance(out, tuple) else (out,)
-        h = hashlib.sha256()
-        for t in out:
-            h.update(t.cpu().numpy().tobytes())
-        res.append(dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
-                        sha=h.hexdigest()[:16]))
-        del args, out
+        sha = digest(kind, fn(**args), args)
+        row = dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
+                   warm=cs.device_ms(lambda: fn(**args), cold=False), sha=sha)
+        if sweep and kind == "candidate_step":
+            # a floor for the valid2 and far bytes every state costs: two
+            # memsets of them (PyTorch's fill kernels)
+            v2 = torch.empty((args["valid"].numel(), args["index"].nchars),
+                             dtype=torch.uint8, device=dev)
+            far = torch.empty(args["valid"].shape, dtype=torch.uint8, device=dev)
+            row["memset"] = cs.device_ms(lambda: (v2.zero_(), far.zero_()))
+            del v2, far
+        # the wrapper launches the module's kernel object: swap in each variant
+        main = getattr(kernels, kind.upper())
+        for tag, k in variants.get(kind, ()):
+            setattr(kernels, kind.upper(), k)
+            try:
+                if digest(kind, fn(**args), args) != sha:
+                    raise AssertionError(f"{kind} {tag}: outputs differ at {label}")
+                row[f"var:{tag}"] = cs.device_ms(lambda: fn(**args))
+            finally:
+                setattr(kernels, kind.upper(), main)
+        res.append(row)
+        del args
     if sweep:
         chunks = kernels.compact_chunks
         for n, shape in enumerate(COMPACT_SWEEP):
@@ -256,11 +397,18 @@ def run_kernels(other) -> int:
             return 1
         a = [x["ms"] for x in runs["A"]]
         b = [x["ms"] for x in runs["B"]]
-        summary["cases"][label] = dict(shape=shape, A_ms=a, B_ms=b,
-                                       A_over_B=float(np.median(a) / np.median(b)))
+        wa = [x["warm"] for x in runs["A"]]
+        wb = [x["warm"] for x in runs["B"]]
+        extra = {k: [x[k] for x in runs["B"]] for k in runs["B"][0]
+                 if k.startswith("var:") or k == "memset"}
+        summary["cases"][label] = dict(shape=shape, A_ms=a, B_ms=b, A_warm_ms=wa, B_warm_ms=wb,
+                                       A_over_B=float(np.median(a) / np.median(b)),
+                                       **{f"B_{k}": v for k, v in extra.items()})
         print(f"kernels: {label} {shape}: A {a[0]:.4f} / {a[1]:.4f} ms, B {b[0]:.4f} / "
-              f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal)",
-              flush=True)
+              f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal); "
+              f"L2 warm: A {wa[0]:.4f} / {wa[1]:.4f} ms, B {wb[0]:.4f} / {wb[1]:.4f} ms"
+              + "".join(f"; B {k.removeprefix('var:')} {v[0]:.4f} / {v[1]:.4f} ms"
+                        for k, v in extra.items()), flush=True)
     n = len(KERNEL_CASES)
     for j in range(len(COMPACT_SWEEP)):
         rows = [p[n + j] for p in results["B"]]

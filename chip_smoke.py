@@ -99,11 +99,17 @@ or of the JAX package.  Phases (any failure exits non-zero):
              kernel's edge cases against its plain version; the read rates
              of candidate_step and dimer_step beside the sweep's
  12. kernels the largest checked call of each kernel (and of each
-             dimer_step variant, of compact's short-row, long-row and
-             counting calls, of count_tail at Fe = 1 and with the zero-error
-             outputs) is timed on the card (kernel, plain version, library
-             call where one exists) beside its bound; compact must have been
-             checked in each regime with count on and off
+             candidate_step and dimer_step variant, of compact's short-row,
+             long-row and counting calls, of count_tail at Fe = 1 and with
+             the zero-error outputs) is timed on the card (kernel, plain
+             version, library call where one exists) beside its bound;
+             compact must have been checked in each regime with count on
+             and off
+
+candidate_step's calls are held against the plain version under the
+kernel's output contract (`kernels.candidate_step_view`: valid2 and far in
+full, out on the slots the contract defines, and the compaction of out by
+valid2); every other kernel's outputs in full.
 
 Output: a line per kernel (ten), `{"kernels": [...]}`, the card's name and
 power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
@@ -310,6 +316,9 @@ class _Checker:
         want = getattr(self.kernels, f"{name}_plain")(**args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        if name == "candidate_step":  # what its output contract defines
+            got = self.kernels.candidate_step_view(got, **args)
+            want = self.kernels.candidate_step_view(want, **args)
         err = max_abs_err(got, want)
         self.calls[name] += 1
         self.err[name] = max(self.err[name], err)
@@ -339,6 +348,10 @@ def timing_keys(name, args) -> list:
                 + ([f"compact+{regime}"] if regime != "middle" else []))
     if name == "count_tail" and args["valid"].numel() == args["cnt"].numel() * args["J"]:
         return [name, "count_tail+fe1"]
+    if name == "candidate_step":  # A, R, rank mode, passthrough groups
+        return [name, f"{name}+A={args['index'].nchars},R={args['st'].shape[0]},"
+                      f"{'exact' if args['exact'] else 'fast'},"
+                      f"pass={not bool(args['act'].all())}"]
     if name == "dimer_step":  # A, rank mode, mono steps, passthrough slots
         return [name, f"{name}+A={args['index'].nchars},"
                       f"{'exact' if args['exact'] else 'fast'},"
@@ -405,6 +418,10 @@ def kernel_work(name, args):
         nops = 10 * Bn * Ln  # index, shift, mask, N test per symbol
         return nbytes, nops, f"B={Bn} Ln={Ln}", 0
     if name == "candidate_step":
+        # what the data needs: every state's validity, valid2 and far; the
+        # row (and plan id) of each working (valid, active) state, its
+        # distinct rank sub-rows and its R x A outputs; a valid passthrough
+        # state's R values read and written once (candidate 0)
         ix, st, valid = args["index"], args["st"], args["valid"]
         R, N = st.shape
         A = ix.nchars
@@ -413,7 +430,7 @@ def kernel_work(name, args):
         active = args["act"].bool()[g]
         work = valid.bool() & active
         nwork = int(work.sum())
-        n_idle = N - int(active.sum())  # pass through: every row copied
+        npass = int((valid.bool() & ~active).sum())
         r = args["right"].bool()[g]
         mlo = torch.where(r, rank.u32(st[1]), rank.u32(st[0]))[work]
         hi = (mlo + rank.u32(st[2])[work]) & rank.MASK32
@@ -425,16 +442,17 @@ def kernel_work(name, args):
         n_reads = int(addr.numel())
         n_rows = int(torch.unique(addr).numel())
         subw = sub_width(ix.has_n)
-        nbytes = (N + (4 * N if R == 5 else 0)  # validity, plan ids
-                  + 4 * (4 * nwork + (R - (R == 5)) * n_idle)  # state rows
+        nbytes = (N  # validity
+                  + 4 * (4 + (R == 5)) * nwork + 2 * 4 * R * npass  # state rows
                   + n_rows * subw * 4  # distinct rank sub-rows
-                  + R * N * A * 4 + N * A + N)  # outputs
+                  + R * A * 4 * nwork + N * A + N)  # outputs
         # per bound: 32 code words x (3 popcounts + ~7 mask ops) and two
         # 16-word bitvectors x 4 ops; then ~20 ops per candidate
         nops = nwork * (2 * (32 * 10 + 2 * 16 * 4) + 20 * A)
-        shape = (f"N={N} states ({nwork} valid) R={R} A={A} "
-                 f"{'exact' if args['exact'] else 'fast'}, {n_reads} sub-row reads "
-                 f"of {n_rows} distinct sub-rows")
+        shape = (f"N={N} states ({nwork} working, {npass} passing through, "
+                 f"{int(valid.sum())} valid) R={R} A={A} per_block={args['per_block']} "
+                 f"inner={args['inner']} G={G} {'exact' if args['exact'] else 'fast'}, "
+                 f"{n_reads} sub-row reads of {n_rows} distinct sub-rows")
         return nbytes, nops, shape, n_reads
     if name == "compact":
         # without count a row needs its validity only up to its (F+1)-th
@@ -509,10 +527,12 @@ def kernel_work(name, args):
 
 
 def dimer_work(args):
-    """Bytes and operations of one dimer_step call: validity and plan ids
-    of every state, the state rows of the consuming valid states, per
+    """Bytes and operations of one dimer_step call: validity of every
+    state, the rows (and plan ids) of the consuming valid states, per
     distinct dimer sub-row read the words a bound needs (2 field words, 4
-    delta words, 16 threshold counts, 4 mono counts), the outputs; per
+    delta words, 16 threshold counts, 4 mono counts), the outputs that a
+    consumer reads (valid2 and far of every state, the candidates of the
+    consuming valid states, candidate 0 of a valid passthrough); per
     bound ~420 ops (16 nibble-equality masks and popcounts over 2 words,
     16 sums) and ~20 per candidate."""
     import torch
@@ -538,9 +558,14 @@ def dimer_work(args):
         subs = torch.cat([q, (q + 1)[(hi >> 7) > q]])
     n_reads = int(subs.numel())
     n_subs = int(torch.unique(subs).numel())
-    nbytes = (N + (4 * N if R == 5 else 0) + 4 * 4 * nwork
-              + 4 * (R - (R == 5)) * int(passing.sum())  # passthrough copies
-              + n_subs * 26 * 4 + R * N * 16 * 4 + N * 16 + N)
+    # outputs of the working states only (16 slots of a dimer step, A of a
+    # mono step), candidate 0 of a valid passthrough state; plan ids and
+    # rows of those states only
+    mono = (cons == 1) if args["with_mono"] else torch.zeros_like(passing)
+    slots = int(torch.where(mono[work], ix.nchars, 16).sum())
+    npass = int((valid.bool() & passing).sum())
+    nbytes = (N + 4 * (4 + (R == 5)) * nwork + 2 * 4 * R * npass
+              + n_subs * 26 * 4 + R * 4 * slots + N * 16 + N)
     nops = nwork * (2 * 420 + 16 * 20)
     mode = "exact" if args["exact"] else "fast"
     return (nbytes, nops, f"N={N} states ({nwork} valid, consuming) R={R} "
@@ -1931,7 +1956,9 @@ def dense_candidate_step(dev, checker, idx):
         st[r] = torch.randint(lo, hi, (N,), device=dev, generator=gen, dtype=torch.int32)
     dense = dict(args, index=index, st=st, valid=torch.ones(N, dtype=torch.uint8, device=dev))
     got = checker.orig["candidate_step"](**dense)
-    err = max_abs_err(got, kernels.candidate_step_plain(**dense))
+    err = max_abs_err(kernels.candidate_step_view(got, **dense),
+                      kernels.candidate_step_view(kernels.candidate_step_plain(**dense),
+                                                  **dense))
     if err:
         raise AssertionError(f"dense candidate_step differs from plain (max abs err {err})")
     ms = device_ms(lambda: checker.orig["candidate_step"](**dense))

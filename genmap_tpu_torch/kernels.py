@@ -291,6 +291,31 @@ def candidate_step_plain(index, st, valid, *, per_block, inner, nch, right,
     return out, valid2.to(torch.uint8), far.to(torch.uint8)
 
 
+def candidate_step_defined(st, valid, act, per_block: int, inner: int,
+                           A: int) -> torch.Tensor:
+    """[N, A] bool: the slots of `candidate_step`'s out that its contract
+    defines (every candidate of a valid active state, candidate 0 of a
+    valid passthrough state)."""
+    _blk, g = _state_groups(st, per_block, inner, act.shape[0])
+    cand0 = torch.arange(A, device=st.device)[None, :] == 0
+    return valid.bool()[:, None] & (act.bool()[g][:, None] | cand0)
+
+
+def candidate_step_view(res, *, st, valid, act, per_block: int, inner: int, **_):
+    """What a consumer can read of a `candidate_step` result `res` (called
+    with the step's own arguments): out with the undefined slots zeroed,
+    valid2, far, and the engine's compaction of out by valid2 (rows of
+    `inner` states, `compact_plain`).  Two results agree under the contract
+    when their views are equal."""
+    out, valid2, far = res
+    R, N, A = out.shape
+    defined = candidate_step_defined(st, valid, act, per_block, inner, A)
+    rows = N // inner
+    kept = compact_plain(out.reshape(R, rows, inner * A),
+                         valid2.reshape(rows, inner * A), inner)
+    return (torch.where(defined[None], out, 0), valid2, far, *kept)
+
+
 def candidate_step(index, st, valid, *, per_block: int, inner: int, nch,
                    right, act, u, lreq, exact: bool):
     """One search step of N states by every candidate character.
@@ -308,6 +333,14 @@ def candidate_step(index, st, valid, *, per_block: int, inner: int, nch,
     Returns (out [R, N, A] int32, valid2 [N, A] uint8, far [N] uint8): slot
     c of `out` is the state extended by character c (err counting c != nch
     or nch == N), pruned in valid2 by the bounds, empty intervals and far.
+
+    Contract: valid2 and far are written for every state; out[:, i, :] is
+    defined where state i is valid and active, out[:, i, 0] where it is
+    valid and passes through (it holds the state), and every other slot of
+    out is undefined (the kernel leaves it as allocated;
+    `candidate_step_defined`).  compact reads only slots whose valid2 is 1;
+    the seed-table build passes every state valid and active.  The plain
+    version fills the undefined slots (zeros, passthrough copies).
     """
     if not st.is_cuda:
         return candidate_step_plain(index, st, valid, per_block=per_block,

@@ -74,8 +74,15 @@ def test_seed_tables_and_needles(cuda, alpha):
     starts = rng.integers(0, data.text_len, 300).astype(np.uint32).view(np.int32)
     gt = rank.DeviceText.from_host(data, cuda)
     ct = rank.DeviceText.from_host(data, "cpu")
-    for Ln, limit in ((37, data.text_len), (149, data.text_len - 500)):
-        s = torch.from_numpy(starts)
+    # 300 blocks: a thread per byte; 36,000: outputs of 512 KiB and more,
+    # where rows of 16 or more take 16 bytes per thread
+    many = rng.integers(0, data.text_len, 36_000).astype(np.uint32).view(np.int32)
+    for B, Ln, limit in ((300, 37, data.text_len), (300, 149, data.text_len - 500),
+                         (300, 1, data.text_len), (300, 5, data.text_len),
+                         (300, 16, data.text_len - 3), (300, 17, data.text_len),
+                         (36_000, 15, data.text_len), (36_000, 16, data.text_len - 3),
+                         (36_000, 17, data.text_len), (36_000, 149, data.text_len - 500)):
+        s = torch.from_numpy(starts if B == 300 else many)
         _eq(rank.extract_needles(gt, s.to(cuda), Ln, limit),
             rank.extract_needles(ct, s, Ln, limit))
 
@@ -90,6 +97,16 @@ def _states(rng, n_total, N, R, P, wide):
     ])[:R].astype(np.int64)
     valid = (rng.random(N) < 0.8).astype(np.uint8)
     return torch.from_numpy(st.astype(np.uint32).view(np.int32)), torch.from_numpy(valid)
+
+
+def _views_equal(got, ref, args):
+    """candidate_step results agree under the kernel's output contract
+    (`kernels.candidate_step_view`): valid2 and far in full, out on the
+    defined slots, and the compaction of out by valid2."""
+    gv = kernels.candidate_step_view(tuple(x.cpu() for x in got), **args)
+    rv = kernels.candidate_step_view(ref, **args)
+    for a, b in zip(gv, rv):
+        _eq(a, b)
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
@@ -114,10 +131,77 @@ def test_candidate_step(cuda, alpha, exact):
             right=right.to(cuda), act=act.to(cuda), u=u.to(cuda),
             lreq=lreq.to(cuda), **args)
         torch.cuda.synchronize()
-        for a, b in zip(got, ref):
-            _eq(a, b)
+        _views_equal(got, ref, dict(args, st=st, valid=valid, act=act))
         if not exact:
             assert ref[2].any()  # the far path was exercised
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("nwork", [1, 2, 3, 4, 5, 8, 9, 32])
+def test_candidate_step_lane_widths(cuda, alpha, nwork):
+    """Exactly `nwork` working states in every tile of 32 consecutive
+    states, at random lanes: a warp reads 1-8 of them by 32 / nwork lanes
+    each (32, 16, 8, 4) and more by a lane each; exact and fast rank mode."""
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(60 + 2 * alpha + nwork)
+    B, per_block, inner, G = 48, 64, 64, 3
+    N = B * per_block
+    n = int(gi.n_total)
+    for exact in (True, False):
+        flo, rlo = rng.integers(0, n, N), rng.integers(0, n, N)
+        size = np.minimum(rng.integers(1, 600 if exact else 5000, N),
+                          n - np.maximum(flo, rlo))
+        st = np.stack([flo, rlo, size, rng.integers(0, 3, N), rng.integers(0, G, N)])
+        st = torch.from_numpy(st.astype(np.uint32).view(np.int32))
+        valid = np.zeros((N // 32, 32), np.uint8)
+        lanes = np.argsort(rng.random((N // 32, 32)), axis=1)[:, :nwork]
+        np.put_along_axis(valid, lanes, 1, axis=1)
+        valid = torch.from_numpy(valid.reshape(-1))
+        args = dict(per_block=per_block, inner=inner, exact=exact,
+                    nch=torch.from_numpy(rng.integers(0, 5, (B, G)).astype(np.uint8)),
+                    right=torch.from_numpy(rng.integers(0, 2, G).astype(np.uint8)),
+                    act=torch.ones(G, dtype=torch.uint8),
+                    u=torch.from_numpy(rng.integers(0, 4, G).astype(np.int32)),
+                    lreq=torch.from_numpy(rng.integers(0, 2, G).astype(np.int32)))
+        ref = kernels.candidate_step(ci, st, valid, **args)
+        got = kernels.candidate_step(gi, st.to(cuda), valid.to(cuda),
+                                     **{k: v.to(cuda) if torch.is_tensor(v) else v
+                                        for k, v in args.items()})
+        torch.cuda.synchronize()
+        _views_equal(got, ref, dict(args, st=st, valid=valid))
+        assert ref[1].any()
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("R", [4, 5])
+def test_candidate_step_sparse_frontier(cuda, alpha, R):
+    """A frontier as compact leaves it (each row's valid states first, most
+    warps without one), with passthrough groups; fast rank mode."""
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(40 + 2 * alpha + R)
+    n = int(gi.n_total)
+    B, per_block, inner, G = (96, 64, 64, 4) if R == 5 else (48, 5 * 32, 32, 5)
+    N = B * per_block
+    flo, rlo = rng.integers(0, n, N), rng.integers(0, n, N)
+    size = np.minimum(rng.integers(1, 3000, N), n - np.maximum(flo, rlo))
+    st = np.stack([flo, rlo, size, rng.integers(0, 3, N), rng.integers(0, G, N)])[:R]
+    st = torch.from_numpy(st.astype(np.uint32).view(np.int32))
+    nv = rng.integers(0, 4, N // inner) * (rng.random(N // inner) < 0.3)
+    valid = torch.from_numpy((np.arange(inner)[None, :] < nv[:, None])
+                             .reshape(-1).astype(np.uint8))
+    args = dict(per_block=per_block, inner=inner, exact=False,
+                nch=torch.from_numpy(rng.integers(0, 5, (B, G)).astype(np.uint8)),
+                right=torch.from_numpy(rng.integers(0, 2, G).astype(np.uint8)),
+                act=torch.from_numpy(np.array([1, 0] + [1] * (G - 2), np.uint8)),
+                u=torch.full((G,), 3, dtype=torch.int32),
+                lreq=torch.zeros(G, dtype=torch.int32))
+    ref = kernels.candidate_step(ci, st, valid, **args)
+    got = kernels.candidate_step(gi, st.to(cuda), valid.to(cuda),
+                                 **{k: v.to(cuda) if torch.is_tensor(v) else v
+                                    for k, v in args.items()})
+    torch.cuda.synchronize()
+    _views_equal(got, ref, dict(args, st=st, valid=valid))
+    assert ref[1].any()
 
 
 # compact's regimes (kernels.compact_chunks): short rows (M <= 32), middle
