@@ -21,22 +21,24 @@ schedule is wide, twins before the wide exact tiers) against
 dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
-With --kernels, no map: `candidate_step`, `extract_needles`, `compact` and
-`count_tail` of OTHER_CHECKOUT (A) and of this checkout (B) are timed in
-turns, A B B A, one process each, on the same seeded inputs (made on the
-card from a torch.Generator seed; candidate_step reads a random rank table
-of the main index's size) at the shapes of KERNEL_CASES, with
-chip_smoke.py's `device_ms` (CUDA events, L2 flushed, median of 10; and
-with L2 warm, queued behind a spin); every process's outputs must hash
-the same (candidate_step's as its output contract defines them: this
-checkout's `kernels.candidate_step_view`).  This checkout's processes also
-time `candidate_step` and `extract_needles` at each of their cases in
-VARIANTS (their sources built with CS_LANES / CS_COOP_MAX and EN_THREADS /
-EN_WIDE_BYTES overridden, the measurement behind those defaults; outputs
-must equal the kernel's), two memsets of candidate_step's valid2 and far
-as a floor for the bytes every state costs, and `compact` at
-COMPACT_SWEEP's shapes with its middle-row and its long-row regime forced
-(behind `kernels.COMPACT_LONG_M`).
+With --kernels, no map: `candidate_step`, `dimer_step`, `extract_needles`,
+`compact` and `count_tail` of OTHER_CHECKOUT (A) and of this checkout (B)
+are timed in turns, A B B A, one process each, on the same seeded inputs
+(made on the card from a torch.Generator seed; candidate_step reads a
+random rank table of the main index's size, dimer_step a random dimer
+table of its size) at the shapes of KERNEL_CASES, with chip_smoke.py's
+`device_ms` (CUDA events, L2 flushed, median of 10; and with L2 warm,
+queued behind a spin); every process's outputs must hash the same
+(candidate_step's and dimer_step's as their output contracts define them:
+this checkout's `kernels.candidate_step_view` / `dimer_step_view`).  This
+checkout's processes also time `candidate_step`, `dimer_step` and
+`extract_needles` at each of their cases in VARIANTS (their sources built
+with CS_LANES / CS_COOP_MAX, DS_LANES / DS_COOP_MAX / DS_WAVES and
+EN_THREADS / EN_WIDE_BYTES overridden, the measurement behind those
+defaults; outputs must equal the kernel's), two memsets of the two step
+kernels' valid2 and far as a floor for the bytes every state costs, and
+`compact` at COMPACT_SWEEP's shapes with its middle-row and its long-row
+regime forced (behind `kernels.COMPACT_LONG_M`).
 
 Each process builds its kernels, maps once to warm up, then maps N times
 (default 3); it reports the compute time of each run (`map`'s own
@@ -46,7 +48,8 @@ device bytes and its frequencies' checksum, which must agree across all
 processes of one configuration.  With --busy, one more map under
 torch.profiler (device activity only, as chip_smoke.py's
 `profiled_device_times`) gives each kernel's device ms over a whole map
-(and that of PyTorch's own device ops, `other`) and the device-busy share
+(and that of PyTorch's own device ops, `other`), its calls with their
+median and 90th-percentile device ms, and the device-busy share
 (device time over the map's wall time, the profiler's overhead
 included).  Printed last: one JSON object with every process's numbers
 and the card's name and power limit.  Needs one CUDA card and nvcc.
@@ -105,7 +108,7 @@ for i in range(runs + 1):
                         probe_skipped=st["probe_skipped"],
                         launches=sum(kernels.launch_counts().values()),
                         peak_bytes=torch.cuda.max_memory_allocated()))
-share, per_map = None, None
+share, per_map, per_call = None, None, None
 if busy:
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke_ab", os.path.join(here, "chip_smoke.py"))
@@ -117,10 +120,12 @@ if busy:
         lambda: map_main(argv + ["-O", o + "/"], report={}))
     per_map = {n: sum(c) for n, c in calls.items()}
     per_map["other"] = other_ms
+    per_call = {n: [len(c), float(np.median(c)), float(np.percentile(c, 90))]
+                for n, c in calls.items() if c}
     dev_ms = sum(per_map.values())
     share = dev_ms / 1e3 / wall if dev_ms > 0 else None
 for r in res:
-    r["busy_share"], r["device_ms_per_map"] = share, per_map
+    r["busy_share"], r["device_ms_per_map"], r["calls_median_p90_ms"] = share, per_map, per_call
 print(json.dumps(res))
 """
 
@@ -128,6 +133,9 @@ print(json.dumps(res))
 # (label, kernel, shape): candidate_step A, R, B, per_block, inner, G,
 # exact, mean valid share of a frontier row (its valid states first; 1.0:
 # every state valid, intervals under 64 symbols), share of active groups;
+# dimer_step A, R, B, per_block, inner, G, exact, mean valid share,
+# with_mono, with_pass (groups g % 4 == 1 consume 1 with mono steps, g % 4
+# == 3 pass through with passthrough slots, the rest consume 2);
 # extract_needles B, Ln, N mask; compact R, rows, M, F, count, max row
 # density; count_tail B, J, Fe, with_exact, mean valid share.  The shapes
 # of the smoke's largest call of each timed variant or regime (a mean
@@ -149,6 +157,24 @@ KERNEL_CASES = (
      (4, 5, 768, 4096, 4096, 2, True, 0.0, 1.0)),
     ("candidate_step dense (every state valid)", "candidate_step",
      (4, 5, 768, 4096, 4096, 2, True, 1.0, 1.0)),
+    ("dimer_step R=5 exact, 2 % valid (largest)", "dimer_step",
+     (4, 5, 768, 4096, 4096, 3, True, 0.0214, False, False)),
+    ("dimer_step R=4 fast, passthrough", "dimer_step",
+     (4, 4, 1024, 784, 16, 49, False, 0.0878, False, True)),
+    ("dimer_step R=4 fast, mono steps, passthrough", "dimer_step",
+     (4, 4, 1024, 784, 16, 49, False, 0.0878, True, True)),
+    ("dimer_step R=5 fast, B=1024, F=64, 30 % valid", "dimer_step",
+     (4, 5, 1024, 64, 64, 3, False, 0.3, False, False)),
+    ("dimer_step no valid state, R=5", "dimer_step",
+     (4, 5, 768, 4096, 4096, 3, True, 0.0, False, False)),
+    ("dimer_step dense (every state valid)", "dimer_step",
+     (4, 5, 768, 4096, 4096, 3, True, 1.0, False, False)),
+    ("dimer_step small, R=4 fast, passthrough, rows half valid, B=16", "dimer_step",
+     (4, 4, 16, 784, 16, 49, False, 0.5, False, True)),
+    ("dimer_step small, R=5 fast, B=128, F=64, 30 % valid", "dimer_step",
+     (4, 5, 128, 64, 64, 3, False, 0.3, False, False)),
+    ("dimer_step small, R=4 exact, passthrough, B=64", "dimer_step",
+     (4, 4, 64, 784, 16, 49, True, 0.0878, False, True)),
     ("extract_needles largest, Ln=29", "extract_needles", (8334, 29, False)),
     ("extract_needles Ln=148", "extract_needles", (8192, 148, False)),
     ("extract_needles Ln=148, B=1024", "extract_needles", (1024, 148, False)),
@@ -171,13 +197,20 @@ KERNEL_CASES = (
 # of its own.  candidate_step: CS_LANES, lanes per cooperatively read state
 # (0, the default: 32 / the warp's working states), and CS_COOP_MAX, the
 # most working states a warp reads cooperatively (8; 0: always a lane per
-# state); extract_needles: EN_THREADS (256) and EN_WIDE_BYTES, the output
-# size from which a thread writes 16 bytes, smaller outputs a byte (512 KiB;
-# 0: always, where rows allow; 2^30: never)
+# state); dimer_step: DS_LANES, lanes per working state (4; 1: a lane per
+# state), DS_COOP_MAX, the most working states a warp reads with DS_LANES
+# lanes each, more a lane each (32: never), DS_WAVES, the least waves of
+# resident blocks (4), and DS_MIN_BLOCKS, the resident blocks per SM asked
+# of the compiler (6: at most 80 registers; 8: 64; 1: uncapped);
+# extract_needles: EN_THREADS (256) and EN_WIDE_BYTES, the output size
+# from which a thread writes 16 bytes, smaller outputs a byte (512 KiB; 0:
+# always, where rows allow; 2^30: never)
 VARIANTS = {
     "candidate_step": ({"CS_COOP_MAX": 4}, {"CS_COOP_MAX": 16}, {"CS_COOP_MAX": 32},
                        {"CS_LANES": 8, "CS_COOP_MAX": 4}, {"CS_LANES": 4},
                        {"CS_LANES": 16, "CS_COOP_MAX": 2}, {"CS_COOP_MAX": 0}),
+    "dimer_step": ({"DS_MIN_BLOCKS": 1}, {"DS_MIN_BLOCKS": 8}, {"DS_LANES": 1},
+                   {"DS_LANES": 2}, {"DS_LANES": 8}, {"DS_LANES": 16}, {"DS_WAVES": 2}),
     "extract_needles": ({"EN_WIDE_BYTES": 0}, {"EN_WIDE_BYTES": 1 << 30},
                         {"EN_THREADS": 128}),
 }
@@ -243,6 +276,45 @@ def kernel_inputs(kind, shape, dev, seed):
                     right=ints(0, 2, (G,)).to(torch.uint8), act=act,
                     u=torch.full((G,), 2, dtype=torch.int32, device=dev),
                     lreq=torch.zeros(G, dtype=torch.int32, device=dev), exact=exact)
+    if kind == "dimer_step":
+        A, R, B, per_block, inner, G, exact, share, with_mono, with_pass = shape
+        N = B * per_block
+        top = 64 if share >= 1 else 600
+        # paired sub-rows whose L_15 counts and 15th delta bytes are those
+        # of rows all of valid codes (so L_15(slice) = size and exact steps
+        # are not all `far`), flagged (bit 31 of word 60) on ~0.1 % of them
+        nb = N_TOTAL // 128 + 1
+        table = ints(0, 2**32, (nb, 128))
+        for h in (0, 64):
+            q = torch.arange(nb, device=dev, dtype=torch.int64) + h // 64
+            table[:, h + 31] = 128 * q
+            for d in range(1, 8):
+                w = h + 32 + 4 * (d - 1) + 3
+                table[:, w] = (table[:, w] & 0xFFFFFF) | (16 * d) << 24
+            table[:, h + 60] &= 0x7FFFFFFF
+            table[:, h + 60] |= (rand(nb) < 0.001).to(torch.int64) << 31
+        index = types.SimpleNamespace(
+            dimer_blocks=(table - (table >> 31 << 32)).to(torch.int32), nchars=A,
+            has_n=A == 5, has_dimer=True, C=ints(0, N_TOTAL, (A,)).to(torch.int32),
+            C2=ints(0, N_TOTAL, (16,)).to(torch.int32))
+        st = torch.stack([ints(0, N_TOTAL - top, (N,)), ints(0, N_TOTAL - top, (N,)),
+                          ints(1, top, (N,)), ints(0, 3, (N,)), ints(0, G, (N,))])[:R]
+        if share >= 1:
+            valid = torch.ones(N, dtype=torch.uint8, device=dev)
+        else:  # each row's valid states first, as compaction leaves them
+            nv = (rand(N // inner, 1) * 2 * share * inner).round()
+            valid = (torch.arange(inner, device=dev)[None, :] < nv).to(torch.uint8).reshape(-1)
+        grp = torch.arange(G, device=dev)
+        consume = torch.where(with_pass & (grp % 4 == 3), 0,
+                              torch.where(with_mono & (grp % 4 == 1), 1, 2)).to(torch.uint8)
+        bound = torch.full((G,), 2, dtype=torch.int32, device=dev)
+        zero = torch.zeros(G, dtype=torch.int32, device=dev)
+        return dict(index=index, st=st.to(torch.int32).contiguous(), valid=valid,
+                    per_block=per_block, inner=inner, consume=consume,
+                    right=ints(0, 2, (G,)).to(torch.uint8), u_mid=bound, u_end=bound,
+                    l_mid=zero, l_end=zero, nchA=ints(0, 5, (B, G)).to(torch.uint8),
+                    nchB=ints(0, 5, (B, G)).to(torch.uint8), exact=exact,
+                    with_mono=with_mono, with_pass=with_pass)
     if kind == "extract_needles":
         B, Ln, has_n = shape
         text = N_TOTAL // 2
@@ -301,7 +373,7 @@ def build_variants(kernels):
 def time_kernel_cases(kernels, here, sweep):
     """In a child process: each KERNEL_CASES case timed with the imported
     `kernels` (this checkout's or another's), with a hash of its outputs;
-    with `sweep`, candidate_step's and extract_needles' cases in each of
+    with `sweep`, candidate_step's, dimer_step's and extract_needles' cases in each of
     VARIANTS (outputs equal to the kernel's) and COMPACT_SWEEP under each
     forced regime."""
     import hashlib
@@ -320,13 +392,14 @@ def time_kernel_cases(kernels, here, sweep):
     contract = load("kernels_contract", os.path.join(here, "genmap_tpu_torch", "kernels.py"))
     dev = torch.device("cuda")
     kernels.build([kernels.KERNELS[k] for k in
-                   ("candidate_step", "extract_needles", "compact", "count_tail")])
+                   ("candidate_step", "dimer_step", "extract_needles", "compact",
+                    "count_tail")])
     variants = build_variants(kernels) if sweep else {}
 
     def digest(kind, out, args):
         out = out if isinstance(out, tuple) else (out,)
-        if kind == "candidate_step":
-            out = contract.candidate_step_view(out, **args)
+        if kind in ("candidate_step", "dimer_step"):
+            out = getattr(contract, f"{kind}_view")(out, **args)
         h = hashlib.sha256()
         for t in out:
             h.update(t.cpu().numpy().tobytes())
@@ -339,11 +412,11 @@ def time_kernel_cases(kernels, here, sweep):
         sha = digest(kind, fn(**args), args)
         row = dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
                    warm=cs.device_ms(lambda: fn(**args), cold=False), sha=sha)
-        if sweep and kind == "candidate_step":
+        if sweep and kind in ("candidate_step", "dimer_step"):
             # a floor for the valid2 and far bytes every state costs: two
             # memsets of them (PyTorch's fill kernels)
-            v2 = torch.empty((args["valid"].numel(), args["index"].nchars),
-                             dtype=torch.uint8, device=dev)
+            width = args["index"].nchars if kind == "candidate_step" else 16
+            v2 = torch.empty((args["valid"].numel(), width), dtype=torch.uint8, device=dev)
             far = torch.empty(args["valid"].shape, dtype=torch.uint8, device=dev)
             row["memset"] = cs.device_ms(lambda: (v2.zero_(), far.zero_()))
             del v2, far
@@ -451,7 +524,8 @@ def run_order(work, idx, order, runs, k, e, tag, busy):
               f"{col([x['fetch_s'] for x in rs], '.2f')} s; batches "
               f"{rs[0]['batches']}; launches {rs[0]['launches']}; peak allocated "
               f"{rs[0]['peak_bytes']} B; device busy (profiled map) {rs[0]['busy_share']}, "
-              f"device ms per map {rs[0]['device_ms_per_map']}; "
+              f"device ms per map {rs[0]['device_ms_per_map']}; calls, median and "
+              f"p90 ms per call {rs[0]['calls_median_p90_ms']}; "
               f"dimer tier 0 {rs[0]['dimer_tier']}; blocks per "
               f"tier {rs[0]['tier_blocks']}; probe skipped {rs[0]['probe_skipped']}",
               flush=True)
@@ -473,7 +547,7 @@ def main() -> int:
     p.add_argument("--busy", action="store_true",
                    help="also profile one map per process (device ms per kernel, busy share)")
     p.add_argument("--kernels", action="store_true",
-                   help="time compact and count_tail against OTHER_CHECKOUT's (no map)")
+                   help="time the kernels against OTHER_CHECKOUT's (no map)")
     args = p.parse_args()
     if args.dimer == (args.other is not None):
         p.error("give either OTHER_CHECKOUT or --dimer")

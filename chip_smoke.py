@@ -106,10 +106,11 @@ or of the JAX package.  Phases (any failure exits non-zero):
              compact must have been checked in each regime with count on
              and off
 
-candidate_step's calls are held against the plain version under the
-kernel's output contract (`kernels.candidate_step_view`: valid2 and far in
-full, out on the slots the contract defines, and the compaction of out by
-valid2); every other kernel's outputs in full.
+candidate_step's and dimer_step's calls are held against the plain version
+under the kernel's output contract (`kernels.candidate_step_view`,
+`kernels.dimer_step_view`: valid2 and far in full, out on the slots the
+contract defines, and the compaction of out by valid2); every other
+kernel's outputs in full.
 
 Output: a line per kernel (ten), `{"kernels": [...]}`, the card's name and
 power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
@@ -316,9 +317,9 @@ class _Checker:
         want = getattr(self.kernels, f"{name}_plain")(**args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        if name == "candidate_step":  # what its output contract defines
-            got = self.kernels.candidate_step_view(got, **args)
-            want = self.kernels.candidate_step_view(want, **args)
+        if name in ("candidate_step", "dimer_step"):  # what their contracts define
+            view = getattr(self.kernels, f"{name}_view")
+            got, want = view(got, **args), view(want, **args)
         err = max_abs_err(got, want)
         self.calls[name] += 1
         self.err[name] = max(self.err[name], err)

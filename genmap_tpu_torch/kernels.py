@@ -746,9 +746,10 @@ DIMER_SLOTS = 16
 def dimer_step_plain(index, st, valid, *, per_block, inner, consume, right,
                      u_mid, u_end, l_mid, l_end, nchA, nchB, exact,
                      with_mono, with_pass):
-    """Plain PyTorch version of `dimer_step` (same arguments, same results).
-    Only valid consuming states are computed: invalid ones give all-zero
-    outputs and passthrough ones are copied, as in the kernel."""
+    """Plain PyTorch version of `dimer_step` (same arguments, same results
+    on every slot the kernel's contract defines).  Only valid consuming
+    states are computed: it fills the undefined slots with zeros (invalid
+    states) and copies (passthrough states)."""
     R, N = st.shape
     A = index.nchars
     G = right.shape[0]
@@ -818,6 +819,37 @@ def dimer_step_plain(index, st, valid, *, per_block, inner, consume, right,
     return out, valid2.to(torch.uint8), far.to(torch.uint8)
 
 
+def dimer_step_defined(st, valid, consume, per_block: int, inner: int, A: int,
+                       with_mono: bool, with_pass: bool) -> torch.Tensor:
+    """[N, 16] bool: the slots of `dimer_step`'s out that its contract
+    defines (all 16 of a valid dimer step, 0..A-1 of a valid mono step,
+    slot 0 of a valid passthrough)."""
+    _blk, g = _state_groups(st, per_block, inner, consume.shape[0])
+    cons = consume.to(torch.int64)[g]
+    passing = (cons == 0) if with_pass else torch.zeros_like(cons, dtype=torch.bool)
+    mono = ~passing & (cons != 2) if with_mono else torch.zeros_like(passing)
+    slot = torch.arange(DIMER_SLOTS, device=st.device)[None, :]
+    width = torch.where(passing, 1, torch.where(mono, A, DIMER_SLOTS))
+    return valid.bool()[:, None] & (slot < width[:, None])
+
+
+def dimer_step_view(res, *, index, st, valid, consume, per_block: int, inner: int,
+                    with_mono: bool, with_pass: bool, **_):
+    """What a consumer can read of a `dimer_step` result `res` (called with
+    the step's own arguments): out with the undefined slots zeroed, valid2,
+    far, and the engine's compaction of out by valid2 (rows of `inner`
+    states, `compact_plain`).  Two results agree under the contract when
+    their views are equal."""
+    out, valid2, far = res
+    R, N, S = out.shape
+    defined = dimer_step_defined(st, valid, consume, per_block, inner, index.nchars,
+                                 with_mono, with_pass)
+    rows = N // inner
+    kept = compact_plain(out.reshape(R, rows, inner * S),
+                         valid2.reshape(rows, inner * S), inner)
+    return (torch.where(defined[None], out, 0), valid2, far, *kept)
+
+
 def dimer_step(index, st, valid, *, per_block: int, inner: int, consume,
                right, u_mid, u_end, l_mid, l_end, nchA, nchB, exact: bool,
                with_mono: bool, with_pass: bool):
@@ -839,7 +871,15 @@ def dimer_step(index, st, valid, *, per_block: int, inner: int, consume,
     (c2*4 + c1, prepended c1c2), slots 0..A-1 of a mono step by one
     character, slot 0 of a passthrough the state itself; err counts the
     mismatching chars (N mismatches every candidate), valid2 prunes by the
-    bounds, empty intervals and far."""
+    bounds, empty intervals and far.
+
+    Contract: valid2 and far are written for every state; out[:, i, :] is
+    defined where state i is valid and consumes (all 16 slots on a dimer
+    step, slots 0..A-1 on a mono step), out[:, i, 0] where it is valid and
+    passes through (it holds the state), and every other slot of out is
+    undefined (the kernel leaves it as allocated; `dimer_step_defined`).
+    compact reads only slots whose valid2 is 1, and `far` is read whole.
+    Compare two results with `dimer_step_view`, never whole."""
     if not st.is_cuda:
         return dimer_step_plain(index, st, valid, per_block=per_block,
                                 inner=inner, consume=consume, right=right,

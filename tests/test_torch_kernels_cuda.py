@@ -389,11 +389,10 @@ def test_engine_cuda_equals_cpu(cuda, alpha):
             np.testing.assert_array_equal(a, b)
 
 
-def _dimer_inputs(rng, n, R, exact, with_mono, with_pass):
-    """dimer_step inputs: intervals anywhere, at the 128-symbol sub-row
+def _dimer_intervals(rng, n, N):
+    """(lo, size) of N states: intervals anywhere, at the 128-symbol sub-row
     edges and around the fast window (0, 1 or 2 sub-rows past the start),
-    and wide ones; every consume kind the variant allows; needles with N."""
-    G, nblk, N = 4, 16, 2048
+    and wide ones."""
     lo = np.concatenate([rng.integers(0, n + 1, N // 2),
                          128 * rng.integers(0, n // 128, N // 2)
                          + rng.choice([0, 1, 15, 16, 126, 127], N // 2)])
@@ -403,7 +402,14 @@ def _dimer_inputs(rng, n, R, exact, with_mono, with_pass):
     size = np.select([kind == 0, kind == 1, kind == 2],
                      [rng.integers(0, 20, N), np.maximum(0, 128 - lo % 128 + edge),
                       rng.integers(0, 600, N)], rng.integers(0, n + 1, N))
-    size = np.minimum(size, n - lo)
+    return lo, np.minimum(size, n - lo)
+
+
+def _dimer_inputs(rng, n, R, exact, with_mono, with_pass):
+    """dimer_step inputs: `_dimer_intervals`; every consume kind the variant
+    allows; needles with N."""
+    G, nblk, N = 4, 16, 2048
+    lo, size = _dimer_intervals(rng, n, N)
     other = (rng.random(N) * (n - size + 1)).astype(np.int64)
     side = rng.integers(0, 2, N).astype(bool)
     st = np.stack([np.where(side, lo, other), np.where(side, other, lo), size,
@@ -442,9 +448,97 @@ def test_dimer_step(cuda, alpha, exact, with_mono, with_pass):
                                  **{k: v.to(cuda) if torch.is_tensor(v) else v
                                     for k, v in kw.items()})
         torch.cuda.synchronize()
-        for a, b in zip(got, ref):
-            _eq(a, b)
+        _dimer_views_equal(got, ref, dict(kw, index=ci, st=st, valid=valid))
         assert ref[1].any() and ref[2].any()  # valid candidates and far states
+
+
+def _dimer_views_equal(got, ref, args):
+    """dimer_step results agree under the kernel's output contract
+    (`kernels.dimer_step_view`): valid2 and far in full, out on the defined
+    slots, and the compaction of out by valid2."""
+    gv = kernels.dimer_step_view(tuple(x.cpu() for x in got), **args)
+    rv = kernels.dimer_step_view(ref, **args)
+    for a, b in zip(gv, rv):
+        _eq(a, b)
+
+
+# working states (valid and consuming) per tile of 32 consecutive states:
+# a warp reads up to 8 of them with the sixteen codes of each across its
+# lanes and more with a lane each
+_DIMER_LANE_CASES = ["0", "1", "2", "8", "9", "32", "all_valid", "none_valid",
+                     "only_pass", "sparse"]
+
+
+def _dimer_lane_inputs(rng, n, R, exact, case):
+    """dimer_step inputs whose tiles hold a set number of working states.
+    Groups consume 2, 1, 2, 0 (mono and passthrough slots on); R = 5 draws
+    each state's plan id by its role (a warp mixes dimer, mono and
+    passthrough states), R = 4 has one group per tile (inner = 32)."""
+    G, nblk, per_block = 4, 16, 128
+    N = nblk * per_block
+    tiles = N // 32
+    lo, size = _dimer_intervals(rng, n, N)
+    other = (rng.random(N) * (n - size + 1)).astype(np.int64)
+    side = rng.integers(0, 2, N).astype(bool)
+    consume = np.array([0] * G if case == "only_pass" else [2, 1, 2, 0])
+    consuming = np.nonzero(consume > 0)[0]
+    if R == 5:
+        grp = rng.integers(0, G, N)
+    else:
+        grp = (np.arange(N) % per_block) // 32
+    if case in ("all_valid", "only_pass"):
+        valid = np.ones(N, bool)
+    elif case == "none_valid":
+        valid = np.zeros(N, bool)
+    else:
+        k = int(case) if case != "sparse" else 3
+        valid = np.zeros((tiles, 32), bool)
+        lanes = np.argsort(rng.random((tiles, 32)), axis=1)[:, :k]
+        np.put_along_axis(valid, lanes, True, axis=1)
+        if case == "sparse":  # a frontier with states in every 7th tile only
+            valid[np.arange(tiles) % 7 != 3] = False
+        valid = valid.reshape(-1)
+        if R == 5:  # working lanes consume; some other lanes pass through
+            grp = np.where(valid, consuming[rng.integers(0, len(consuming), N)], 3)
+            extra = ~valid & (rng.random(N) < 0.2)
+            valid |= extra
+    st = np.stack([np.where(side, lo, other), np.where(side, other, lo), size,
+                   rng.integers(0, 3, N), grp])[:R]
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dt))
+
+    u_mid = rng.integers(1, 3, G)
+    kw = dict(per_block=per_block, inner=per_block if R == 5 else 32,
+              consume=t(consume, np.uint8), right=t([0, 1, 1, 0], np.uint8),
+              u_mid=t(u_mid, np.int32), u_end=t(u_mid + 1, np.int32),
+              l_mid=t(np.zeros(G), np.int32), l_end=t(rng.integers(0, 2, G), np.int32),
+              nchA=t(rng.integers(0, 5, (nblk, G)), np.uint8),
+              nchB=t(rng.integers(0, 5, (nblk, G)), np.uint8),
+              exact=exact, with_mono=True, with_pass=True)
+    return t(st.astype(np.uint32).view(np.int32), np.int32), t(valid, np.uint8), kw
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("case", _DIMER_LANE_CASES)
+def test_dimer_step_lane_paths(cuda, alpha, case):
+    """Every lane path of dimer_step: tiles with exactly 0, 1, 2, 8, 9 and
+    32 working states (a warp per state, two states per warp, a lane per
+    state), every state valid, none, only passthroughs, and a sparse
+    frontier; R = 5 and 4, exact and fast rank mode."""
+    data, gi, ci = _indexes(alpha, cuda)
+    rng = np.random.default_rng(80 + alpha + 2 * _DIMER_LANE_CASES.index(case))
+    for exact in (True, False):
+        for R in (5, 4):
+            st, valid, kw = _dimer_lane_inputs(rng, gi.n_total, R, exact, case)
+            ref = kernels.dimer_step(ci, st, valid, **kw)
+            got = kernels.dimer_step(gi, st.to(cuda), valid.to(cuda),
+                                     **{k: v.to(cuda) if torch.is_tensor(v) else v
+                                        for k, v in kw.items()})
+            torch.cuda.synchronize()
+            _dimer_views_equal(got, ref, dict(kw, index=ci, st=st, valid=valid))
+            if case not in ("0", "none_valid", "only_pass"):
+                assert ref[1].any()  # valid candidates
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
