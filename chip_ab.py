@@ -3,7 +3,7 @@
 
     python3 chip_ab.py OTHER_CHECKOUT [--runs N] [--busy]
     python3 chip_ab.py --dimer [--runs N] [--busy]
-    python3 chip_ab.py OTHER_CHECKOUT --kernels
+    python3 chip_ab.py OTHER_CHECKOUT --kernels [--only KERNEL,...]
 
 Builds chip_smoke.py's 12.07 Mbp genome-like genome and its index once,
 then maps it with `genmap-tpu-torch map -K k -E e -fl -r` on the card from
@@ -22,20 +22,30 @@ dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
 With --kernels, no map: `candidate_step`, `dimer_step`, `extract_needles`,
-`compact` and `count_tail` of OTHER_CHECKOUT (A) and of this checkout (B)
-are timed in turns, A B B A, one process each, on the same seeded inputs
-(made on the card from a torch.Generator seed; candidate_step reads a
-random rank table of the main index's size, dimer_step a random dimer
-table of its size) at the shapes of KERNEL_CASES, with chip_smoke.py's
+`compact`, `count_tail`, `gather_states` and `locate` of OTHER_CHECKOUT (A)
+and of this checkout (B) are timed in turns, A B B A, one process each, on
+the same seeded inputs (made on the card from a torch.Generator seed;
+candidate_step reads a random rank table of the main index's size,
+dimer_step a random dimer table of its size; locate walks real indexes,
+built once by this process with `genmap-tpu-torch index` from
+chip_smoke.py's genome-like genomes: the 12.07 Mbp main genome, the 1 Mbp
+Dna5 genome of its dna5 phase and a LARGE_BP genome-like genome, on rows
+drawn with a numpy seed, in runs of consecutive SA rows as `-d` draws them
+or scattered) at the shapes of KERNEL_CASES (--only: those kernels' cases,
+variants and sweep only), with chip_smoke.py's
 `device_ms` (CUDA events, L2 flushed, median of 10; and with L2 warm,
 queued behind a spin); every process's outputs must hash the same
 (candidate_step's and dimer_step's as their output contracts define them:
-this checkout's `kernels.candidate_step_view` / `dimer_step_view`).  This
-checkout's processes also time `candidate_step`, `dimer_step` and
-`extract_needles` at each of their cases in VARIANTS (their sources built
-with CS_LANES / CS_COOP_MAX, DS_LANES / DS_COOP_MAX / DS_WAVES and
-EN_THREADS / EN_WIDE_BYTES overridden, the measurement behind those
-defaults; outputs must equal the kernel's), two memsets of the two step
+this checkout's `kernels.candidate_step_view` / `dimer_step_view`);
+gather_states is timed beside `index_select` of the same rows in the same
+process.  This checkout's processes also time `candidate_step`,
+`dimer_step`, `extract_needles`, `locate` and `gather_states` at each of
+their cases in VARIANTS (their sources built with CS_LANES / CS_COOP_MAX,
+DS_LANES / DS_COOP_MAX / DS_WAVES, EN_THREADS / EN_WIDE_BYTES, LC_LANES /
+LC_THREADS / LC_WAVES / LC_MIN_BLOCKS and GS_THREADS overridden, the
+measurement behind
+those defaults; outputs must equal the kernel's; each variant's ptxas
+registers printed), two memsets of the two step
 kernels' valid2 and far as a floor for the bytes every state costs, and
 `compact` at COMPACT_SWEEP's shapes with its middle-row and its long-row
 regime forced (behind `kernels.COMPACT_LONG_M`).
@@ -191,7 +201,23 @@ KERNEL_CASES = (
     ("count_tail Fe=1", "count_tail", (2048, 49, 1, False, 0.8)),
     ("count_tail Fe=1, B=8192", "count_tail", (8192, 50, 1, False, 0.8)),
     ("count_tail exact, Fe=64", "count_tail", (1003, 49, 64, True, 0.12)),
+    ("gather_states largest, B=1024 npad=32 n=26 Fc=256 Fe=128", "gather_states",
+     (1024, 32, 26, 256, 128)),
+    ("gather_states Fc=64 Fe=16, B=2048 npad=1024", "gather_states", (2048, 1024, 1000, 64, 16)),
+    ("gather_states Fc=32 Fe=64, B=2048 npad=1024", "gather_states", (2048, 1024, 1000, 32, 64)),
+    ("gather_states Fc=4 Fe=8, B=8192 npad=8192", "gather_states", (8192, 8192, 8000, 4, 8)),
+    ("locate smoke's largest, 521,207 clustered rows", "locate", ("main", 521_207, True)),
+    ("locate engine chunk, 1,048,576 clustered rows", "locate", ("main", 1 << 20, True)),
+    ("locate engine chunk, 1,048,576 scattered rows", "locate", ("main", 1 << 20, False)),
+    ("locate small, 25,000 clustered rows", "locate", ("main", 25_000, True)),
+    ("locate Dna5, 262,144 clustered rows", "locate", ("dna5", 1 << 18, True)),
+    ("locate large index, 1,048,576 scattered rows", "locate", ("large", 1 << 20, False)),
 )
+# locate's indexes (kernel_inputs "locate" shape[0]); LARGE_BP: the
+# flagship corpus size, whose index (paired rank rows ~104 MB, twice L2)
+# the call builds in about a minute of the card host's time
+LARGE_BP = 64_000_000
+CLUSTER_MEAN = 2.26  # rows per k-mer of the smoke's -d map of chrI (521,207 / 230,218)
 # Variants of this checkout's kernels timed at each of their cases: the
 # kernel's source built with its macros overridden (nvcc -D) into a library
 # of its own.  candidate_step: CS_LANES, lanes per cooperatively read state
@@ -205,7 +231,17 @@ KERNEL_CASES = (
 # extract_needles: EN_THREADS (256) and EN_WIDE_BYTES, the output size
 # from which a thread writes 16 bytes, smaller outputs a byte (512 KiB; 0:
 # always, where rows allow; 2^30: never)
+# locate: LC_LANES, lanes per walked row (1), LC_THREADS (128),
+# LC_WAVES, the grid capped at that many waves of resident blocks whose
+# groups take rows in a grid-stride loop (0: a row per group), and
+# LC_MIN_BLOCKS, resident blocks per SM asked of the compiler (0: none);
+# gather_states: GS_THREADS (256; rows per block = GS_THREADS / the row's
+# lanes)
 VARIANTS = {
+    "locate": ({"LC_LANES": 2}, {"LC_LANES": 4}, {"LC_WAVES": 1}, {"LC_WAVES": 4},
+               {"LC_MIN_BLOCKS": 12}, {"LC_MIN_BLOCKS": 16}, {"LC_THREADS": 64},
+               {"LC_THREADS": 256}, {"LC_THREADS": 256, "LC_MIN_BLOCKS": 6}),
+    "gather_states": ({"GS_THREADS": 64}, {"GS_THREADS": 128}, {"GS_THREADS": 512}),
     "candidate_step": ({"CS_COOP_MAX": 4}, {"CS_COOP_MAX": 16}, {"CS_COOP_MAX": 32},
                        {"CS_LANES": 8, "CS_COOP_MAX": 4}, {"CS_LANES": 4},
                        {"CS_LANES": 16, "CS_COOP_MAX": 2}, {"CS_COOP_MAX": 0}),
@@ -226,7 +262,8 @@ N_TOTAL = 24_142_684  # the main genome's index (both strands)
 
 KCHILD = r"""
 import importlib.util, json, os, sys
-root, here, sweep = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+root, here, sweep, indexes, only = (sys.argv[1], sys.argv[2], sys.argv[3] == "1",
+                                    json.loads(sys.argv[4]), json.loads(sys.argv[5]))
 sys.path.insert(0, root)
 from genmap_tpu_torch import kernels
 if not os.path.abspath(kernels.__file__).startswith(os.path.abspath(root) + os.sep):
@@ -234,17 +271,54 @@ if not os.path.abspath(kernels.__file__).startswith(os.path.abspath(root) + os.s
 spec = importlib.util.spec_from_file_location("chip_ab_here", os.path.join(here, "chip_ab.py"))
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
-print(json.dumps(ab.time_kernel_cases(kernels, here, sweep)))
+print(json.dumps(ab.time_kernel_cases(kernels, here, sweep, indexes, only)))
 """
 
 
-def kernel_inputs(kind, shape, dev, seed):
+_LOADED = {}
+
+
+def locate_index(path, dev):
+    """The index at `path` on the card with its SA samples (light=False),
+    loaded once per process with the imported package."""
+    if path not in _LOADED:
+        from genmap_tpu_torch.index.fmindex import FMIndexData
+        from genmap_tpu_torch.ops import rank
+
+        data = FMIndexData.load(path)
+        _LOADED[path] = rank.DeviceIndex.from_part(data, data.parts[0], light=False,
+                                                   device=dev)
+    return _LOADED[path]
+
+
+def locate_rows(n_total, N, clustered, seed):
+    """N SA rows of an index of n_total rows (numpy seed): runs of
+    consecutive rows of geometric length (mean CLUSTER_MEAN) at uniform
+    starts, or uniform rows."""
+    rng = np.random.default_rng(seed)
+    if not clustered:
+        return rng.integers(0, n_total, N, dtype=np.int64)
+    runs = rng.geometric(1 / CLUSTER_MEAN, N)
+    starts = rng.integers(0, n_total - int(runs.max()), N)
+    rows = np.repeat(starts, runs) + (np.arange(int(runs.sum()))
+                                      - np.repeat(np.cumsum(runs) - runs, runs))
+    return rows[:N]
+
+
+def kernel_inputs(kind, shape, dev, seed, indexes=None):
     """Seeded inputs of one KERNEL_CASES / COMPACT_SWEEP case, made on the
-    card (the same in every process of one torch build)."""
+    card (the same in every process of one torch build); locate's index
+    paths in `indexes`."""
     import types
 
     import torch
 
+    if kind == "locate":
+        key, N, clustered = shape
+        index = locate_index(indexes[key], dev)
+        rows = locate_rows(index.n_total, N, clustered, seed)
+        pos = torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(dev)
+        return dict(index=index, pos=pos, valid=torch.ones(N, dtype=torch.uint8, device=dev))
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*size):
@@ -322,6 +396,13 @@ def kernel_inputs(kind, shape, dev, seed):
         nwords = ints(-2**31, 2**31 - 1, (text // 32 + 1 if has_n else 0,)).to(torch.int32)
         return dict(words=words, nwords=nwords, starts=ints(0, text - Ln, (B,)).to(torch.int32),
                     Ln=Ln, limit=text, text_limit=text)
+    if kind == "gather_states":
+        B, npad, n, Fc, Fe = shape
+        st = ints(-2**31, 2**31 - 1, (4, B, Fc)).to(torch.int32)
+        valid = (rand(B, Fc) < 0.5).to(torch.uint8)
+        ridx = torch.zeros(npad, dtype=torch.int32, device=dev)
+        ridx[:n] = ints(0, B, (n,)).to(torch.int32)
+        return dict(st=st, valid=valid, ridx=ridx, n=n, Fe=Fe)
     if kind == "compact":
         R, rows, M, F, count, dmax = shape
         arrays = ints(-2**31, 2**31 - 1, (R, rows, M)).to(torch.int32)
@@ -341,13 +422,23 @@ def kernel_inputs(kind, shape, dev, seed):
                 cnt=cnt, J=J, cap=255, rev_compl=True, with_exact=exact)
 
 
-def build_variants(kernels):
+def kernel_cases(only):
+    """(seed offset, label, kind, shape) of the KERNEL_CASES of the kernels
+    in `only` (None: all)."""
+    return [(n, label, kind, shape) for n, (label, kind, shape) in enumerate(KERNEL_CASES)
+            if only is None or kind in only]
+
+
+def build_variants(kernels, only):
     """VARIANTS' libraries (one nvcc per variant, all started together):
-    {kernel: [(tag, Kernel)]}, each Kernel bound to its own library."""
+    ({kernel: [(tag, Kernel)]}, each Kernel bound to its own library, and
+    {"kernel tag": ptxas lines})."""
     import hashlib
 
-    built, procs = {}, []
+    built, procs, ptxas = {}, [], {}
     for name, sweep in VARIANTS.items():
+        if only is not None and name not in only:
+            continue
         base = kernels.KERNELS[name]
         stem, ext = os.path.splitext(base.lib_path())
         for defs in sweep:
@@ -360,22 +451,26 @@ def build_variants(kernels):
                 cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(f"-D{d}={v}" for d, v in
                                                               defs.items()),
                        "-I", kernels.CSRC, "-o", f"{path}.tmp", base.source_path]
-                procs.append((path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT)))
-    for path, p in procs:
+                procs.append((f"{name} {tag}", path,
+                              subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT)))
+    for label, path, p in procs:
         log = p.communicate()[0].decode(errors="replace")
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {path}:\n{log[-4000:]}")
         os.replace(f"{path}.tmp", path)
-    return built
+        ptxas[label] = [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+    return built, ptxas
 
 
-def time_kernel_cases(kernels, here, sweep):
+def time_kernel_cases(kernels, here, sweep, indexes, only):
     """In a child process: each KERNEL_CASES case timed with the imported
-    `kernels` (this checkout's or another's), with a hash of its outputs;
-    with `sweep`, candidate_step's, dimer_step's and extract_needles' cases in each of
-    VARIANTS (outputs equal to the kernel's) and COMPACT_SWEEP under each
-    forced regime."""
+    `kernels` (this checkout's or another's), with a hash of its outputs
+    (gather_states beside index_select); with `sweep`, the cases of each
+    kernel in VARIANTS in each of its variants (outputs equal to the
+    kernel's; the variants' and the kernels' ptxas lines returned) and
+    COMPACT_SWEEP under each forced regime."""
     import hashlib
     import importlib.util
 
@@ -391,10 +486,14 @@ def time_kernel_cases(kernels, here, sweep):
     # this checkout's contract view, whichever checkout's kernels are timed
     contract = load("kernels_contract", os.path.join(here, "genmap_tpu_torch", "kernels.py"))
     dev = torch.device("cuda")
-    kernels.build([kernels.KERNELS[k] for k in
-                   ("candidate_step", "dimer_step", "extract_needles", "compact",
-                    "count_tail")])
-    variants = build_variants(kernels) if sweep else {}
+    reports = kernels.build([kernels.KERNELS[k] for k in
+                             ("candidate_step", "dimer_step", "extract_needles", "compact",
+                              "count_tail", "gather_states", "locate")
+                             if only is None or k in only])
+    variants, ptxas = build_variants(kernels, only) if sweep else ({}, {})
+    for name, rep in reports.items():
+        ptxas[name] = [ln.strip() for ln in rep.splitlines()
+                       if "registers" in ln or "spill" in ln]
 
     def digest(kind, out, args):
         out = out if isinstance(out, tuple) else (out,)
@@ -406,12 +505,15 @@ def time_kernel_cases(kernels, here, sweep):
         return h.hexdigest()[:16]
 
     res = []
-    for n, (label, kind, shape) in enumerate(KERNEL_CASES):
-        args = kernel_inputs(kind, shape, dev, 2026 + n)
+    for n, label, kind, shape in kernel_cases(only):
+        args = kernel_inputs(kind, shape, dev, 2026 + n, indexes)
         fn = getattr(kernels, kind)
         sha = digest(kind, fn(**args), args)
         row = dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
                    warm=cs.device_ms(lambda: fn(**args), cold=False), sha=sha)
+        lib = cs.library_fn(kind, args) if kind == "gather_states" else None
+        if lib is not None:
+            row["library"] = cs.device_ms(lib)
         if sweep and kind in ("candidate_step", "dimer_step"):
             # a floor for the valid2 and far bytes every state costs: two
             # memsets of them (PyTorch's fill kernels)
@@ -432,7 +534,7 @@ def time_kernel_cases(kernels, here, sweep):
                 setattr(kernels, kind.upper(), main)
         res.append(row)
         del args
-    if sweep:
+    if sweep and (only is None or "compact" in only):
         chunks = kernels.compact_chunks
         for n, shape in enumerate(COMPACT_SWEEP):
             args = kernel_inputs("compact", shape, dev, 4096 + n)
@@ -446,23 +548,61 @@ def time_kernel_cases(kernels, here, sweep):
             res.append(dict(label=f"sweep R={R} rows={rows} M={M} F={F} density<{dmax}",
                             default=("long" if chunks(M) else "middle"), **ms))
             del args
+    res.append(dict(ptxas=ptxas))
     return res
 
 
-def run_kernels(other) -> int:
+def build_locate_indexes(work) -> dict:
+    """locate's indexes, built with this checkout's `genmap-tpu-torch index`
+    into `work`: {"main", "dna5", "large"} -> index directory."""
+    import time
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from genmap_tpu_torch.cli.main import main as cli_main
+    from genmap_tpu_torch.corpus import make_genomelike
+
+    rng = np.random.default_rng(chip_smoke.SEED + 1)
+    dna5 = make_genomelike(chip_smoke.DNA5_BP, seed=chip_smoke.SEED + 1)
+    for s in rng.integers(0, len(dna5) - 2000, 40):  # N runs, as the smoke's
+        dna5[s : s + int(rng.integers(10, 1500))] = 4
+    genomes = {"main": chip_smoke.yeast_like_genome(), "dna5": [("chrK", dna5)],
+               "large": [("chrL", make_genomelike(LARGE_BP, seed=chip_smoke.SEED + 2))]}
+    paths = {}
+    for key, chroms in genomes.items():
+        t = time.perf_counter()
+        fa = os.path.join(work, f"{key}.fa")
+        chip_smoke.write_fasta(fa, chroms)
+        paths[key] = os.path.join(work, f"idx_{key}")
+        if cli_main(["index", "-F", fa, "-I", paths[key]]) != 0:
+            raise RuntimeError(f"index of {key} failed")
+        print(f"kernels: locate's {key} index ({sum(len(c) for _, c in chroms)} bp) built "
+              f"in {time.perf_counter() - t:.1f} s", flush=True)
+    return paths
+
+
+def run_kernels(other, only) -> int:
     """--kernels: A B B A processes; per case each process's ms, the
     median ratio A / B, and the sweep of this checkout's processes."""
+    with tempfile.TemporaryDirectory(prefix="genmap_abk_") as work:
+        indexes = (build_locate_indexes(work) if only is None or "locate" in only else {})
+        return _run_kernels(other, indexes, only)
+
+
+def _run_kernels(other, indexes, only) -> int:
     order = [("A", os.path.abspath(other)), ("B", HERE), ("B", HERE), ("A", os.path.abspath(other))]
     results = {}
     for key, root in order:
-        r = subprocess.run([sys.executable, "-c", KCHILD, root, HERE, str(int(key == "B"))],
+        r = subprocess.run([sys.executable, "-c", KCHILD, root, HERE, str(int(key == "B")),
+                            json.dumps(indexes), json.dumps(only)],
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
             return 1
         results.setdefault(key, []).append(json.loads(r.stdout.strip().splitlines()[-1]))
     summary = {"cases": {}, "sweep": {}}
-    for i, (label, _kind, shape) in enumerate(KERNEL_CASES):
+    cases = kernel_cases(only)
+    for i, (_n, label, _kind, shape) in enumerate(cases):
         runs = {k: [p[i] for p in ps] for k, ps in results.items()}
         shas = {x["sha"] for rs in runs.values() for x in rs}
         if len(shas) != 1:
@@ -474,16 +614,20 @@ def run_kernels(other) -> int:
         wb = [x["warm"] for x in runs["B"]]
         extra = {k: [x[k] for x in runs["B"]] for k in runs["B"][0]
                  if k.startswith("var:") or k == "memset"}
+        lib = [x["library"] for p in ("A", "B") for x in runs[p] if "library" in x]
         summary["cases"][label] = dict(shape=shape, A_ms=a, B_ms=b, A_warm_ms=wa, B_warm_ms=wb,
                                        A_over_B=float(np.median(a) / np.median(b)),
+                                       **({"library_ms": lib} if lib else {}),
                                        **{f"B_{k}": v for k, v in extra.items()})
         print(f"kernels: {label} {shape}: A {a[0]:.4f} / {a[1]:.4f} ms, B {b[0]:.4f} / "
               f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal); "
               f"L2 warm: A {wa[0]:.4f} / {wa[1]:.4f} ms, B {wb[0]:.4f} / {wb[1]:.4f} ms"
+              + (f"; index_select (A A B B processes) "
+                 f"{' / '.join(f'{x:.4f}' for x in lib)} ms" if lib else "")
               + "".join(f"; B {k.removeprefix('var:')} {v[0]:.4f} / {v[1]:.4f} ms"
                         for k, v in extra.items()), flush=True)
-    n = len(KERNEL_CASES)
-    for j in range(len(COMPACT_SWEEP)):
+    n = len(cases)
+    for j in range(len(COMPACT_SWEEP) if only is None or "compact" in only else 0):
         rows = [p[n + j] for p in results["B"]]
         mid = [x["middle"] for x in rows]
         lng = [x["long"] for x in rows]
@@ -491,6 +635,10 @@ def run_kernels(other) -> int:
                                                   default=rows[0]["default"])
         print(f"kernels: {rows[0]['label']}: middle {mid[0]:.4f} / {mid[1]:.4f} ms, long "
               f"{lng[0]:.4f} / {lng[1]:.4f} ms (default {rows[0]['default']})", flush=True)
+    ptxas = results["B"][0][-1]["ptxas"]
+    for label, lines in sorted(ptxas.items()):
+        print(f"kernels: ptxas {label}: {' | '.join(lines)}", flush=True)
+    summary["ptxas"] = ptxas
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     summary["card"] = smi.stdout.strip()
@@ -548,13 +696,14 @@ def main() -> int:
                    help="also profile one map per process (device ms per kernel, busy share)")
     p.add_argument("--kernels", action="store_true",
                    help="time the kernels against OTHER_CHECKOUT's (no map)")
+    p.add_argument("--only", help="with --kernels: these kernels only (comma-separated)")
     args = p.parse_args()
     if args.dimer == (args.other is not None):
         p.error("give either OTHER_CHECKOUT or --dimer")
     if args.kernels:
         if args.other is None:
             p.error("--kernels needs OTHER_CHECKOUT")
-        return run_kernels(args.other)
+        return run_kernels(args.other, args.only.split(",") if args.only else None)
     sys.path.insert(0, HERE)
     import chip_smoke
     from genmap_tpu_torch.cli.main import main as cli_main

@@ -102,9 +102,12 @@ or of the JAX package.  Phases (any failure exits non-zero):
              candidate_step and dimer_step variant, of compact's short-row,
              long-row and counting calls, of count_tail at Fe = 1 and with
              the zero-error outputs) is timed on the card (kernel, plain
-             version, library call where one exists) beside its bound;
-             compact must have been checked in each regime with count on
-             and off
+             version, library call where one exists) beside its bound and
+             the launch floor (one empty kernel timed the same way), and
+             locate beside a chain yardstick (the rowgather phase's
+             dependent row reads at its sub-row width, as many as its LF
+             steps); compact must have been checked in each regime with
+             count on and off
 
 candidate_step's and dimer_step's calls are held against the plain version
 under the kernel's output contract (`kernels.candidate_step_view`,
@@ -382,7 +385,7 @@ def variant(name, args) -> str:
         return (f"P={args['a_pos'].numel()} t_seed={args['t_seed']} Fp={args['Fp']} "
                 f"A={args['index'].nchars}")
     if name == "gather_states":
-        return f"Fc={args['st'].shape[2]} Fe={args['Fe']}"
+        return f"B={args['st'].shape[1]} Fc={args['st'].shape[2]} Fe={args['Fe']}"
     if name == "probe_mass" and args["st"] is None:
         return (f"reduced P={args['thr'].numel()} "
                 f"mass={bool(args.get('with_mass'))}")
@@ -486,11 +489,11 @@ def kernel_work(name, args):
     if name == "gather_states":
         # min(Fc, Fe) slots of four operands and validity read per row, Fe
         # written; the row ids read once
-        _R, _Bc, Fc = args["st"].shape
+        _R, Bc, Fc = args["st"].shape
         npad, Fe = args["ridx"].numel(), args["Fe"]
         nbytes = npad * 4 + npad * min(Fc, Fe) * 17 + npad * Fe * 17
         nops = 4 * npad * Fe
-        return nbytes, nops, f"npad={npad} (n={args['n']}) Fc={Fc} Fe={Fe}", 0
+        return nbytes, nops, f"npad={npad} (n={args['n']}) B={Bc} Fc={Fc} Fe={Fe}", 0
     if name == "probe_mass" and args["st"] is None:
         # the summed accumulator read, the skip bytes (and masses) written
         Bp, P = args["acc"].shape[0], args["thr"].numel()
@@ -574,50 +577,105 @@ def dimer_work(args):
             f"{n_reads} dimer sub-row reads of {n_subs} distinct sub-rows", n_reads)
 
 
+def locate_walk(index, pos, valid):
+    """The LF walks of `locate` on these rows, as its plain version takes
+    them: per row its steps (a tensor), and per LF step the sub-row read,
+    the offset in it and the code counted (int64 tensors), and the
+    indicator words tested (one per iteration of a live row), as
+    (indicator row, word) ids."""
+    import torch
+
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    subw = sub_width(index.has_n)
+    C = rank.u32(index.C)
+    p = rank.u32(pos)
+    live = valid.bool().clone()
+    steps = torch.zeros(p.shape, dtype=torch.int64, device=p.device)
+    subs, offs, codes, tests = [], [], [], []
+    for _ in range(index.sampling):
+        if not live.any():
+            break
+        at = torch.nonzero(live).squeeze(1)
+        q = p[at]
+        off = q & 127
+        tests.append((q >> 7) * 4 + (off >> 5))
+        irows = rank.u32(index.ind_blocks[q >> 7])
+        ibit = (irows[:, 1:].gather(1, (off >> 5)[:, None])[:, 0] >> (off & 31)) & 1
+        go = ibit == 0
+        q, idx = q[go], at[go]
+        sub = index.fwd_blocks[q >> 9, :subw]
+        code, _s = rank.bwt_char(sub, q, index.has_n)
+        occ, _sent = rank._occ_sub(sub, q, index.has_n)
+        subs.append(q >> 9)
+        offs.append(q & 511)
+        codes.append(code)
+        p[idx] = (C[code] + occ.gather(1, code[:, None])[:, 0]) & rank.MASK32
+        steps[idx] += 1
+        live[at[~go]] = False
+    empty = torch.zeros(0, dtype=torch.int64, device=p.device)
+    cat = (lambda xs: torch.cat(xs) if xs else empty)  # noqa: E731
+    return dict(steps=steps, sub=cat(subs), off=cat(offs), code=cat(codes),
+                tests=cat(tests))
+
+
 def locate_work(args):
-    """Bytes and operations of one locate call, from the walk these rows
-    take: every rank sub-row and indicator row a walk reads (distinct ones
-    counted once), the samples looked up, positions in and answers out;
-    the reads are the LF steps plus the indicator checks."""
+    """Bytes and operations of one locate call, as the data need them.
+
+    Per LF step: the code words between the offset and the nearer end of
+    its sub-row (the layout holds the start counts of the sub-row and of
+    the next one, so at most 16 of the 32), counted for the one code the
+    step takes (a compare, a mask and a popcount: 4 ops a word); the two
+    start-count groups (8 words, ~10 ops with the address and C[code] +
+    occ); where the sub-row holds sentinels (code 0) or N (codes 0 and 4),
+    their bit words on the same side (2 ops each); per indicator test one
+    word (2 ops); per valid row its final rank (5 words, 10 ops).  Bytes:
+    each distinct sub-row's words that its steps read (the most any one
+    step reads), each distinct indicator word tested, per row its position,
+    validity and answer, per valid row its indicator row and sample.  Also
+    returns the first design's count (every code word, all four codes: 32 x
+    10 + 2 x 16 x 4 + 10 ops a step), logged beside the bound."""
     import torch
 
     from genmap_tpu_torch.index.fmindex import sub_width
     from genmap_tpu_torch.ops import rank
 
     ix, pos, valid = args["index"], args["pos"], args["valid"]
+    walk = locate_walk(ix, pos, valid)
+    steps = int(walk["steps"].sum())
+    off, sub, code = walk["off"], walk["sub"], walk["code"]
     subw = sub_width(ix.has_n)
-    C = rank.u32(ix.C)
-    p = rank.u32(pos)
-    live = valid.bool().clone()
-    subs, inds, steps = [], [], 0
-    for _ in range(ix.sampling):
-        if not live.any():
-            break
-        q = p[live]
-        inds.append(q >> 7)
-        irows = rank.u32(ix.ind_blocks[q >> 7])
-        off = q & 127
-        ibit = (irows[:, 1:].gather(1, (off >> 5)[:, None])[:, 0] >> (off & 31)) & 1
-        go = ibit == 0
-        q = q[go]
-        subs.append(q >> 9)
-        sub = ix.fwd_blocks[q >> 9, :subw]
-        code, _s = rank.bwt_char(sub, q, ix.has_n)
-        occ, _sent = rank._occ_sub(sub, q, ix.has_n)
-        nxt = p[live].clone()
-        nxt[go] = (C[code] + occ.gather(1, code[:, None])[:, 0]) & rank.MASK32
-        p[live] = nxt
-        idx = torch.nonzero(live).squeeze(1)
-        live[idx[~go]] = False
-        steps += int(go.sum())
+    cw = off >> 4
+    code_words = torch.minimum(cw + 1, 32 - cw)
+    bit_words = torch.where(off >= 256, 16 - (off >> 5), (off + 31) >> 5)
+    rows = rank.u32(ix.fwd_blocks[sub])
+    last = sub == int(ix.n_total) >> 9
+    has_s = last | (rows[:, 35] != rows[:, subw + 35])
+    nbit = (has_s & (code == 0)).to(torch.int64)
+    if ix.has_n:
+        has_n = last | (rows[:, 52] != rows[:, subw + 52])
+        nbit = nbit + (has_n & ((code == 0) | (code == 4))).to(torch.int64)
+    step_words = code_words + 8 + nbit * bit_words + (3 if ix.has_n else 0)
     n = pos.numel()
-    n_sub = int(torch.unique(torch.cat(subs)).numel()) if subs else 0
-    n_ind = int(torch.unique(torch.cat(inds)).numel()) if inds else 0
-    nbytes = n * (4 + 1 + 8) + n_sub * subw * 4 + n_ind * 20 + 8 * int(valid.sum())
-    nops = steps * (32 * 10 + 2 * 16 * 4 + 10)
-    reads = steps + sum(int(x.numel()) for x in inds)
-    return (nbytes, nops, f"N={n} rows, {steps} LF steps (max {ix.sampling} per row) "
-            f"over {n_sub} distinct sub-rows", reads)
+    nvalid = int(valid.bool().sum())
+    tests = int(walk["tests"].numel())
+    nops = (int((4 * code_words + 2 * nbit * bit_words).sum()) + 10 * steps
+            + 2 * tests + 10 * nvalid)
+    sub_words = 0
+    if steps:
+        ids, inv = torch.unique(sub, return_inverse=True)
+        most = torch.zeros(ids.shape, dtype=torch.int64, device=off.device)
+        most.scatter_reduce_(0, inv, step_words, reduce="amax")
+        sub_words = int(most.sum())
+    n_tests = int(torch.unique(walk["tests"]).numel()) if tests else 0
+    nbytes = n * (4 + 1 + 8) + sub_words * 4 + n_tests * 4 + nvalid * (20 + 8)
+    n_sub = int(torch.unique(sub).numel()) if steps else 0
+    old_ops = steps * (32 * 10 + 2 * 16 * 4 + 10)
+    shape = (f"N={n} rows, {steps} LF steps (max {ix.sampling} per row) over {n_sub} "
+             f"distinct sub-rows, {tests} indicator tests [the first design's count: "
+             f"{old_ops} ops, {old_ops / H100_OPS_PER_S * 1e3:.5f} ms]")
+    return nbytes, nops, shape, steps + tests
 
 
 def library_fn(name, args):
@@ -649,10 +707,16 @@ def library_fn(name, args):
     return library
 
 
-def time_kernels(checker, launches):
+def time_kernels(checker, launches, chain_rates):
     """Phase 12: the largest checked call of each kernel (and of each entry
-    of `timing_keys`), timed; returns the kernels line's rows."""
+    of `timing_keys`), timed, each beside the launch floor (one empty
+    kernel timed the same way) and locate beside the chain yardstick (the
+    rowgather phase's dependent reads, `chain_rates`: {row bytes: {lanes:
+    reads/s}} from its 20 MB table); returns the kernels line's rows."""
+    import torch
+
     from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.index.fmindex import sub_width
 
     missing = [k for k in ("compact+count", "compact+short", "compact+long",
                            "count_tail+exact", "count_tail+fe1") if k not in checker.largest]
@@ -662,6 +726,9 @@ def time_kernels(checker, launches):
     unseen = {(r, c) for r in ("short", "middle", "long") for c in (False, True)} - seen
     if unseen:
         raise AssertionError(f"compact regimes (regime, count) never checked: {sorted(unseen)}")
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    log(f"kernel launch floor: {floor_ms:.4f} ms with L2 flushed (one empty kernel, "
+        f"torch.cuda._sleep(0), timed as every kernel below)")
     rows = []
     extra = sorted(k for k in checker.largest if "+" in k)
     for key in NAMES + tuple(extra):
@@ -684,7 +751,13 @@ def time_kernels(checker, launches):
         rate = ""
         if name == "locate":
             n = args["pos"].numel()
-            rate = f" located_rows_per_s={n / (ms * 1e-3):.3e} flushed"
+            steps = int(locate_walk(args["index"], args["pos"], args["valid"])["steps"].sum())
+            rb = 4 * sub_width(args["index"].has_n)
+            yard = ", ".join(f"{steps / r * 1e3:.4f} ms at {lanes} lane(s) ({r:.3e} reads/s)"
+                             for lanes, r in sorted(chain_rates[rb].items()))
+            rate = (f" located_rows_per_s={n / (ms * 1e-3):.3e} flushed; chain yardstick "
+                    f"(not a bound: the rowgather phase's dependent {rb} B row reads "
+                    f"from its 20 MB table, {steps} of them): {yard}")
         elif n_reads:
             rate = (f" rows_per_s={n_reads / (ms * 1e-3):.3e} flushed, "
                     f"{n_reads / (warm_ms * 1e-3):.3e} warm")
@@ -696,7 +769,7 @@ def time_kernels(checker, launches):
             f"warm (plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}: "
             f"{nbytes} B, {nops} ops"
             + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
-            + f"){rate}; launches {launches[name]}")
+            + f", {ms / floor_ms:.2f}x the launch floor){rate}; launches {launches[name]}")
         if key != name:
             continue  # logged only: the kernels line has one entry per kernel
         rows.append(dict(
@@ -1018,7 +1091,9 @@ def kernel_symbols() -> dict:
     out = {}
     for name, k in kernels.KERNELS.items():
         with open(k.source_path) as f:
-            for sym in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            # the name before the parameter list, after any launch bounds
+            # (written out or through a macro)
+            for sym in re.findall(r"__global__\s+void\s+(?:\w+(?:\([^)]*\))?\s+)?(\w+)\s*\(",
                                   f.read()):
                 out[sym] = name
     return out
@@ -2013,6 +2088,14 @@ def rowgather_phase(dev, checker, idx):
     log(f"rowgather: candidate_step with every state valid on the main index "
         f"({shape}): {n_reads / (ms * 1e-3):.3e} rows/s in {ms:.4f} ms; random 208 B "
         f"row reads in the sweep, rows/s: {ceiling(208)}")
+    # locate's yardstick: dependent reads of its sub-row widths from the
+    # table about the size of the main index's rank rows
+    summary["chain_rows_per_s"] = {
+        rb: {ln: next(r["rows_per_s"] for r in res["sweep"]
+                      if (r["table"], r["row_bytes"], r["kind"], r["lanes"])
+                      == ("20 MB", rb, "chain", ln))
+             for ln in rg.SWEEP_LANES}
+        for rb in (208, 276)}
     for rb in (208, 416, 512):
         summary[f"sweep_{rb}B_rows_per_s"] = {
             f"{t} lanes {ln}": rate(t, rb, ln) for t in ("20 MB", "4 GiB")
@@ -2082,7 +2165,8 @@ def main() -> int:
                                                  checker, idx)
             # launches: the whole-genome map's, and locate's from the -d map of chrI
             launches = dict(launches, locate=csv_counts["locate"])
-            rows = phase("kernels", time_kernels, checker, launches) + [rg_row]
+            rows = phase("kernels", time_kernels, checker, launches,
+                         summary["rowgather"]["chain_rows_per_s"]) + [rg_row]
             phase("seed tables", time_seed_tables, idx)
     log(f"summary: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -717,6 +717,13 @@ def locate(index, pos, valid):
     _check(valid, "valid", torch.uint8, (N,), dev)
     for name in ("fwd_blocks", "C", "ind_blocks", "sa_i1", "sa_i2"):
         _check(getattr(index, name), name, torch.int32, device=dev)
+    if index.C.numel() < 6:
+        raise ValueError("locate: C needs its 6 entries (C[5] is n_total)")
+    # the kernel reads sub-rows as 16- or 8-byte vectors
+    if index.fwd_blocks.shape[1] % 2 or index.fwd_blocks.data_ptr() % 8:
+        raise ValueError(f"locate: rank rows of width {index.fwd_blocks.shape[1]} at "
+                         f"{index.fwd_blocks.data_ptr():#x}: needs an even width and "
+                         f"8-byte alignment")
     i1 = torch.empty((N,), dtype=torch.int32, device=dev)
     i2 = torch.empty((N,), dtype=torch.int32, device=dev)
     LOCATE.launch(

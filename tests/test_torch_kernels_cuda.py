@@ -9,6 +9,8 @@ port is installed:
 All arithmetic is integer, so every comparison is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -341,20 +343,71 @@ def test_probe_mass_reduced(cuda, with_mass):
             _eq(a, b)
 
 
+_SAMPLED = {}
+
+
+def _sampled(alpha, sampling):
+    """The test genome's index at another SA sampling rate, cut so that its
+    last rank sub-row (whose pair is padding) is 416 of 512 rows full."""
+    if (alpha, sampling) not in _SAMPLED:
+        ff = FastaFile(name="g.fa")
+        seqs = _genome(alpha)
+        ff.seqs = seqs[:-1] + [seqs[-1][:-50]]
+        ff.ids = [f"s{i}" for i in range(len(ff.seqs))]
+        _SAMPLED[alpha, sampling] = build_index([ff], sampling=sampling)
+    return _SAMPLED[alpha, sampling]
+
+
+def _locate_rows(n, seed):
+    """(label, rows, valid) sets: every row (a fifth invalid); runs of
+    consecutive rows, as -d draws them; scattered rows at N = 1, 31, 33
+    (around a warp) and 4,097; every row invalid; the rows of the last
+    sub-row."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, n - 8, 700)
+    runs = np.concatenate([np.arange(s, s + rng.integers(1, 9)) for s in starts])
+    sets = [("every row", np.arange(n), np.arange(n) % 5 != 0),
+            ("clustered", runs, np.ones(len(runs), bool))]
+    for N in (1, 31, 33, 4097):
+        sets.append((f"scattered N={N}", rng.integers(0, n, N), rng.random(N) < 0.9))
+    sets.append(("every row invalid", rng.integers(0, n, 500), np.zeros(500, bool)))
+    last = np.arange(n // 512 * 512, n)
+    sets.append(("the last sub-row", last, np.ones(len(last), bool)))
+    return sets
+
+
+def _row_layouts(fb):
+    """The rank rows as stored, 8 bytes off 16-byte alignment (8-byte
+    vectors), and padded to a width that is a multiple of 4 (16-byte
+    vectors): each alphabet reaches both of the kernel's vector widths."""
+    buf = torch.zeros(fb.numel() + 8, dtype=torch.int32, device=fb.device)
+    skew = ((16 - buf.data_ptr() % 16) % 16) // 4 + 2
+    off8 = buf[skew:skew + fb.numel()].view(fb.shape)
+    off8.copy_(fb)
+    w = fb.shape[1] + (-fb.shape[1]) % 4 + (4 if fb.shape[1] % 4 == 0 else 0)
+    pad = torch.zeros((fb.shape[0], w), dtype=torch.int32, device=fb.device)
+    pad[:, :fb.shape[1]] = fb
+    return [("stored", fb), ("8 B off", off8), (f"padded to {w}", pad)]
+
+
+@pytest.mark.parametrize("sampling", [1, 10, 32])
 @pytest.mark.parametrize("alpha", [4, 5])
-def test_locate(cuda, alpha):
-    data = _data(alpha)
+def test_locate(cuda, alpha, sampling):
+    data = _sampled(alpha, sampling)
     part = data.parts[0]
     gi = rank.DeviceIndex.from_part(data, part, light=False, device=cuda)
     ci = rank.DeviceIndex.from_part(data, part, light=False, device="cpu")
-    n = part.n_total
-    pos = torch.from_numpy(np.arange(n, dtype=np.uint32).view(np.int32))
-    valid = torch.from_numpy((np.arange(n) % 5 != 0).astype(np.uint8))
-    ref = kernels.locate(ci, pos, valid)
-    got = kernels.locate(gi, pos.to(cuda), valid.to(cuda))
-    torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        _eq(a, b)
+    assert part.n_total % 512 > 400  # the last sub-row's second half is walked
+    for label, rows, ok in _locate_rows(part.n_total, 10 * alpha + sampling):
+        pos = torch.from_numpy(rows.astype(np.uint32).view(np.int32))
+        valid = torch.from_numpy(ok.astype(np.uint8))
+        ref = kernels.locate(ci, pos, valid)
+        for layout, fb in _row_layouts(gi.fwd_blocks):
+            index = dataclasses.replace(gi, fwd_blocks=fb)
+            got = kernels.locate(index, pos.to(cuda), valid.to(cuda))
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                assert torch.equal(a.cpu(), b), (label, layout)
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
@@ -632,21 +685,35 @@ def test_seed_lookup(cuda, alpha):
             assert ref[1][:, :P].any()
 
 
-@pytest.mark.parametrize("Fc,Fe", [(64, 16), (16, 64), (32, 32)])
+@pytest.mark.parametrize("Fc,Fe", [(64, 16), (16, 64), (32, 32), (4, 4), (4, 8),
+                                   (256, 128), (128, 256), (256, 256), (6, 8), (8, 6)])
 def test_gather_states(cuda, Fc, Fe):
+    """16-byte vectors from Fc = 4 (exactly one) up; Fc above, below and
+    equal to Fe; widths that are not a multiple of 4 (one slot per lane);
+    n = 0, npad = 1, repeated row ids, source rows of 8,192; validity bytes
+    other than 0 and 1; inputs off their 16-byte alignment."""
     rng = np.random.default_rng(Fc + 3 * Fe)
-    B = 200
-    st = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (4, B, Fc)).astype(np.int32))
-    valid = torch.from_numpy((rng.random((B, Fc)) < 0.5).astype(np.uint8))
-    for n, npad in ((37, 64), (64, 64), (1, 2)):
-        ridx = np.zeros(npad, np.int32)
-        ridx[:n] = rng.integers(0, B, n)
-        ridx = torch.from_numpy(ridx)
-        ref = kernels.gather_states(st, valid, ridx, n, Fe)
-        got = kernels.gather_states(st.to(cuda), valid.to(cuda), ridx.to(cuda), n, Fe)
-        torch.cuda.synchronize()
-        for a, b in zip(got, ref):
-            _eq(a, b)
+    for B in (200, 8192):
+        st = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (4, B, Fc)).astype(np.int32))
+        valid = torch.from_numpy(rng.integers(0, 3, (B, Fc)).astype(np.uint8))
+        for n, npad in ((37, 64), (64, 64), (1, 2), (0, 8), (1, 1), (26, 32)):
+            ridx = np.zeros(npad, np.int32)
+            ridx[:n] = rng.integers(0, B, n)
+            if n > 2:
+                ridx[1] = ridx[0]
+            ridx = torch.from_numpy(ridx)
+            ref = kernels.gather_states(st, valid, ridx, n, Fe)
+            for skew in (0, 1):  # skew 1: 4 bytes (st) and 1 byte (valid) off
+                gst = torch.zeros(4 * B * Fc + 4, dtype=torch.int32, device=cuda)
+                gst = gst[skew:skew + 4 * B * Fc].view(4, B, Fc)
+                gst.copy_(st)
+                gv = torch.zeros(B * Fc + 4, dtype=torch.uint8, device=cuda)
+                gv = gv[skew:skew + B * Fc].view(B, Fc)
+                gv.copy_(valid)
+                got = kernels.gather_states(gst, gv, ridx.to(cuda), n, Fe)
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    _eq(a, b)
 
 
 def test_engine_split_cuda_equals_cpu(cuda):
