@@ -22,28 +22,33 @@ dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
 With --kernels, no map: `candidate_step`, `dimer_step`, `extract_needles`,
-`compact`, `count_tail`, `gather_states` and `locate` of OTHER_CHECKOUT (A)
-and of this checkout (B) are timed in turns, A B B A, one process each, on
-the same seeded inputs (made on the card from a torch.Generator seed;
-candidate_step reads a random rank table of the main index's size,
-dimer_step a random dimer table of its size; locate walks real indexes,
-built once by this process with `genmap-tpu-torch index` from
-chip_smoke.py's genome-like genomes: the 12.07 Mbp main genome, the 1 Mbp
-Dna5 genome of its dna5 phase and a LARGE_BP genome-like genome, on rows
-drawn with a numpy seed, in runs of consecutive SA rows as `-d` draws them
-or scattered) at the shapes of KERNEL_CASES (--only: those kernels' cases,
-variants and sweep only), with chip_smoke.py's
+`compact`, `count_tail`, `gather_states`, `locate`, `seed_lookup` and
+`probe_mass` of OTHER_CHECKOUT (A) and of this checkout (B) are timed in
+turns, A B B A, one process each, on the same seeded inputs (made on the
+card from a torch.Generator seed; candidate_step reads a random rank table
+of the main index's size, dimer_step a random dimer table of its size;
+locate walks real indexes, built once by this process with
+`genmap-tpu-torch index` from chip_smoke.py's genome-like genomes: the
+12.07 Mbp main genome, the 1 Mbp Dna5 genome of its dna5 phase and a
+LARGE_BP genome-like genome, on rows drawn with a numpy seed, in runs of
+consecutive SA rows as `-d` draws them or scattered; seed_lookup reads the
+main index's own seed tables, built by each process, with needle windows
+extracted from its text at seeded starts) at the shapes of KERNEL_CASES
+(--only: those kernels' cases, variants and sweep only, and only the
+indexes they read), with chip_smoke.py's
 `device_ms` (CUDA events, L2 flushed, median of 10; and with L2 warm,
 queued behind a spin); every process's outputs must hash the same
 (candidate_step's and dimer_step's as their output contracts define them:
 this checkout's `kernels.candidate_step_view` / `dimer_step_view`);
-gather_states is timed beside `index_select` of the same rows in the same
-process.  This checkout's processes also time `candidate_step`,
-`dimer_step`, `extract_needles`, `locate` and `gather_states` at each of
-their cases in VARIANTS (their sources built with CS_LANES / CS_COOP_MAX,
-DS_LANES / DS_COOP_MAX / DS_WAVES, EN_THREADS / EN_WIDE_BYTES, LC_LANES /
-LC_THREADS / LC_WAVES / LC_MIN_BLOCKS and GS_THREADS overridden, the
-measurement behind
+gather_states is timed beside `index_select` of the same rows and
+probe_mass beside `scatter_add` of the same masses (chip_smoke.py's
+`library_fn`) in the same process.  This checkout's processes also time
+`candidate_step`, `dimer_step`, `extract_needles`, `locate`,
+`gather_states`, `seed_lookup` and `probe_mass` at each of their cases in
+VARIANTS (their sources built with CS_LANES / CS_COOP_MAX, DS_LANES /
+DS_COOP_MAX / DS_WAVES, EN_THREADS / EN_WIDE_BYTES, LC_LANES / LC_THREADS
+/ LC_WAVES / LC_MIN_BLOCKS, GS_THREADS, SL_THREADS and PM_THREADS /
+PM_CAP / PM_SPEC_F / PM_MIN_BLOCKS overridden, the measurement behind
 those defaults; outputs must equal the kernel's; each variant's ptxas
 registers printed), two memsets of the two step
 kernels' valid2 and far as a floor for the bytes every state costs, and
@@ -147,9 +152,13 @@ print(json.dumps(res))
 # with_mono, with_pass (groups g % 4 == 1 consume 1 with mono steps, g % 4
 # == 3 pass through with passthrough slots, the rest consume 2);
 # extract_needles B, Ln, N mask; compact R, rows, M, F, count, max row
-# density; count_tail B, J, Fe, with_exact, mean valid share.  The shapes
-# of the smoke's largest call of each timed variant or regime (a mean
-# density of 1.5 % is that of its largest compact call), and a few more
+# density; count_tail B, J, Fe, with_exact, mean valid share; seed_lookup
+# B, P, Fp, t_seed, Ln, share of N bytes; probe_mass B, F, P, Ln, Dna5,
+# entry ("one": the map's launch; "acc": a part's running sum out; "last":
+# the last part's decision with masses; "reduced"), mean valid share.
+# The shapes of the smoke's largest call of each timed variant or regime
+# (a mean density of 1.5 % is that of its largest compact call), and a few
+# more
 KERNEL_CASES = (
     ("candidate_step largest, R=5 exact", "candidate_step",
      (4, 5, 768, 4096, 4096, 2, True, 0.00243, 1.0)),
@@ -212,6 +221,33 @@ KERNEL_CASES = (
     ("locate small, 25,000 clustered rows", "locate", ("main", 25_000, True)),
     ("locate Dna5, 262,144 clustered rows", "locate", ("dna5", 1 << 18, True)),
     ("locate large index, 1,048,576 scattered rows", "locate", ("large", 1 << 20, False)),
+    ("seed_lookup largest, (100,2): B=8192 P=3 Fp=4 t_seed=12 Ln=148", "seed_lookup",
+     (8192, 3, 4, 12, 148, 0.0)),
+    ("seed_lookup (100,2), B=1024", "seed_lookup", (1024, 3, 4, 12, 148, 0.0)),
+    ("seed_lookup (24,1): B=8192 P=2 Fp=16 t_seed=9 Ln=29", "seed_lookup",
+     (8192, 2, 16, 9, 29, 0.0)),
+    ("seed_lookup (24,1), B=1024", "seed_lookup", (1024, 2, 16, 9, 29, 0.0)),
+    ("seed_lookup (100,4): B=8192 P=7 Fp=8 t_seed=12 Ln=124", "seed_lookup",
+     (8192, 7, 8, 12, 124, 0.0)),
+    ("seed_lookup Dna5 needles (1 % N), (100,2), B=1024", "seed_lookup",
+     (1024, 3, 4, 12, 148, 0.01)),
+    ("seed_lookup t_seed=0, B=8192 P=3 Fp=4", "seed_lookup",
+     (8192, 3, 4, 0, 148, 0.0)),
+    ("probe_mass wide pool, B=8192 F=64 P=3", "probe_mass", (8192, 64, 3, 148, False, "one", 0.1)),
+    ("probe_mass F=4, B=8192 P=3", "probe_mass", (8192, 4, 3, 148, False, "one", 0.5)),
+    ("probe_mass F=12, B=8192 P=3", "probe_mass", (8192, 12, 3, 148, False, "one", 0.3)),
+    ("probe_mass F=8 P=7 (e=4), B=8192", "probe_mass", (8192, 8, 7, 124, False, "one", 0.3)),
+    ("probe_mass F=64, B=1024", "probe_mass", (1024, 64, 3, 148, False, "one", 0.1)),
+    ("probe_mass Dna5 N windows, F=64 B=1024", "probe_mass", (1024, 64, 3, 148, True, "one", 0.1)),
+    ("probe_mass multi-part, acc in and out (last=False), F=64", "probe_mass",
+     (8192, 64, 3, 148, False, "acc", 0.1)),
+    ("probe_mass multi-part, last part with masses, F=64", "probe_mass",
+     (8192, 64, 3, 148, False, "last", 0.1)),
+    ("probe_mass reduced entry, B=8192 P=3", "probe_mass", (8192, 0, 3, 0, False, "reduced", 0.0)),
+    # the (100,2) map's own launch, the smoke's largest checked call (888
+    # valid of 8,192 x 6 slots; a share of 0.0467 draws ~878, one a block)
+    ("probe_mass largest, the map's: B=8192 F=6 P=3, ~878 valid", "probe_mass",
+     (8192, 6, 3, 148, False, "one", 0.0467)),
 )
 # locate's indexes (kernel_inputs "locate" shape[0]); LARGE_BP: the
 # flagship corpus size, whose index (paired rank rows ~104 MB, twice L2)
@@ -236,12 +272,20 @@ CLUSTER_MEAN = 2.26  # rows per k-mer of the smoke's -d map of chrI (521,207 / 2
 # groups take rows in a grid-stride loop (0: a row per group), and
 # LC_MIN_BLOCKS, resident blocks per SM asked of the compiler (0: none);
 # gather_states: GS_THREADS (256; rows per block = GS_THREADS / the row's
-# lanes)
+# lanes); seed_lookup: SL_THREADS (256); probe_mass: PM_THREADS (256),
+# PM_CAP, the lane mass at which the decision-only combine saturates (7;
+# 1: thresholds of 1 take the exact 64-bit combine), and PM_SPEC_F, the
+# most slots a block may have for its plan and size words to be loaded
+# beside the validity (16; 0: never), and PM_MIN_BLOCKS, resident blocks
+# per SM asked of the compiler for P <= 8 (2048 / PM_THREADS; 1: none)
 VARIANTS = {
     "locate": ({"LC_LANES": 2}, {"LC_LANES": 4}, {"LC_WAVES": 1}, {"LC_WAVES": 4},
                {"LC_MIN_BLOCKS": 12}, {"LC_MIN_BLOCKS": 16}, {"LC_THREADS": 64},
                {"LC_THREADS": 256}, {"LC_THREADS": 256, "LC_MIN_BLOCKS": 6}),
     "gather_states": ({"GS_THREADS": 64}, {"GS_THREADS": 128}, {"GS_THREADS": 512}),
+    "seed_lookup": ({"SL_THREADS": 128}, {"SL_THREADS": 512}),
+    "probe_mass": ({"PM_CAP": 1}, {"PM_SPEC_F": 0}, {"PM_SPEC_F": 32}, {"PM_MIN_BLOCKS": 1},
+                   {"PM_THREADS": 128}, {"PM_THREADS": 512}),
     "candidate_step": ({"CS_COOP_MAX": 4}, {"CS_COOP_MAX": 16}, {"CS_COOP_MAX": 32},
                        {"CS_LANES": 8, "CS_COOP_MAX": 4}, {"CS_LANES": 4},
                        {"CS_LANES": 16, "CS_COOP_MAX": 2}, {"CS_COOP_MAX": 0}),
@@ -291,6 +335,19 @@ def locate_index(path, dev):
     return _LOADED[path]
 
 
+def seed_text(path, dev):
+    """The text of the index at `path` on the card and its length, loaded
+    once per process with the imported package."""
+    key = ("text", path)
+    if key not in _LOADED:
+        from genmap_tpu_torch.index.fmindex import FMIndexData
+        from genmap_tpu_torch.ops import rank
+
+        data = FMIndexData.load(path)
+        _LOADED[key] = (rank.DeviceText.from_host(data, dev), data.text_len)
+    return _LOADED[key]
+
+
 def locate_rows(n_total, N, clustered, seed):
     """N SA rows of an index of n_total rows (numpy seed): runs of
     consecutive rows of geometric length (mean CLUSTER_MEAN) at uniform
@@ -320,6 +377,23 @@ def kernel_inputs(kind, shape, dev, seed, indexes=None):
         pos = torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(dev)
         return dict(index=index, pos=pos, valid=torch.ones(N, dtype=torch.uint8, device=dev))
     g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "seed_lookup":
+        # needle windows of the main genome at seeded starts (N bytes put
+        # in at n_share), the main index's own seed tables
+        from genmap_tpu_torch.ops import rank
+
+        B, P, Fp, t, Ln, n_share = shape
+        index = locate_index(indexes["main"], dev)
+        text, text_len = seed_text(indexes["main"], dev)
+        rng = np.random.default_rng(seed)
+        starts = rng.integers(0, text_len - Ln, B).astype(np.uint32)
+        needles = rank.extract_needles(text, torch.from_numpy(starts.view(np.int32)).to(dev),
+                                       Ln, text_len)
+        if n_share:
+            needles[torch.rand((B, Ln), device=dev, generator=g) < n_share] = 4
+        a_pos = torch.from_numpy(rng.integers(0, Ln - t + 1, P).astype(np.int32)).to(dev)
+        return dict(index=index, needles=needles, a_pos=a_pos, t_seed=t, Fp=Fp,
+                    n_total=index.n_total)
 
     def rand(*size):
         return torch.rand(size, device=dev, generator=g)
@@ -389,6 +463,30 @@ def kernel_inputs(kind, shape, dev, seed, indexes=None):
                     l_mid=zero, l_end=zero, nchA=ints(0, 5, (B, G)).to(torch.uint8),
                     nchB=ints(0, 5, (B, G)).to(torch.uint8), exact=exact,
                     with_mono=with_mono, with_pass=with_pass)
+    if kind == "probe_mass":
+        # survivors as the probe's compaction leaves them (each row's valid
+        # slots first), sizes of 1-3 and one in 1,000 past 2^31, 0/1
+        # thresholds as probe_thresholds gives them
+        B, F, P, Ln, has_n, mode, share = shape
+        thr = ints(0, 2, (P,)).to(torch.int32)
+        acc = ints(0, 3, (B, P + 1))
+        acc[:, P] = (rand(B) < 0.05).to(torch.int64)
+        if mode == "reduced":
+            return dict(st=None, valid=None, ovf=None, needles=None, thr=thr, has_n=False,
+                        acc=acc)
+        N = B * F
+        size = torch.where(rand(N) < 0.001, ints(2**31, 2**32, (N,)), ints(1, 4, (N,)))
+        st = torch.stack([ints(0, N_TOTAL, (N,)), ints(0, N_TOTAL, (N,)), size,
+                          torch.zeros_like(size), ints(0, P, (N,))])
+        st = (st - (st >> 31 << 32)).to(torch.int32).view(5, B, F)
+        nv = (rand(B, 1) * 2 * share * F).round()
+        valid = (torch.arange(F, device=dev)[None, :] < nv).to(torch.uint8)
+        needles = ints(0, 4, (B, Ln)).to(torch.uint8)
+        if has_n:
+            needles[rand(B, Ln) < 0.002] = 4
+        return dict(st=st, valid=valid, ovf=(rand(B) < 0.05).to(torch.uint8),
+                    needles=needles, thr=thr, has_n=has_n, with_mass=mode == "last",
+                    acc=acc if mode in ("acc", "last") else None, last=mode != "acc")
     if kind == "extract_needles":
         B, Ln, has_n = shape
         text = N_TOTAL // 2
@@ -467,7 +565,7 @@ def build_variants(kernels, only):
 def time_kernel_cases(kernels, here, sweep, indexes, only):
     """In a child process: each KERNEL_CASES case timed with the imported
     `kernels` (this checkout's or another's), with a hash of its outputs
-    (gather_states beside index_select); with `sweep`, the cases of each
+    (gather_states beside index_select, probe_mass beside scatter_add); with `sweep`, the cases of each
     kernel in VARIANTS in each of its variants (outputs equal to the
     kernel's; the variants' and the kernels' ptxas lines returned) and
     COMPACT_SWEEP under each forced regime."""
@@ -488,7 +586,8 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
     dev = torch.device("cuda")
     reports = kernels.build([kernels.KERNELS[k] for k in
                              ("candidate_step", "dimer_step", "extract_needles", "compact",
-                              "count_tail", "gather_states", "locate")
+                              "count_tail", "gather_states", "locate", "seed_lookup",
+                              "probe_mass")
                              if only is None or k in only])
     variants, ptxas = build_variants(kernels, only) if sweep else ({}, {})
     for name, rep in reports.items():
@@ -511,7 +610,8 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
         sha = digest(kind, fn(**args), args)
         row = dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
                    warm=cs.device_ms(lambda: fn(**args), cold=False), sha=sha)
-        lib = cs.library_fn(kind, args) if kind == "gather_states" else None
+        lib = (cs.library_fn(kind, args) if kind in ("gather_states", "probe_mass")
+               else None)
         if lib is not None:
             row["library"] = cs.device_ms(lib)
         if sweep and kind in ("candidate_step", "dimer_step"):
@@ -552,9 +652,10 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
     return res
 
 
-def build_locate_indexes(work) -> dict:
-    """locate's indexes, built with this checkout's `genmap-tpu-torch index`
-    into `work`: {"main", "dna5", "large"} -> index directory."""
+def build_locate_indexes(work, keys) -> dict:
+    """The indexes of `keys` (of "main", "dna5", "large"), built with this
+    checkout's `genmap-tpu-torch index` into `work`: key -> index
+    directory."""
     import time
 
     sys.path.insert(0, HERE)
@@ -562,21 +663,25 @@ def build_locate_indexes(work) -> dict:
     from genmap_tpu_torch.cli.main import main as cli_main
     from genmap_tpu_torch.corpus import make_genomelike
 
-    rng = np.random.default_rng(chip_smoke.SEED + 1)
-    dna5 = make_genomelike(chip_smoke.DNA5_BP, seed=chip_smoke.SEED + 1)
-    for s in rng.integers(0, len(dna5) - 2000, 40):  # N runs, as the smoke's
-        dna5[s : s + int(rng.integers(10, 1500))] = 4
-    genomes = {"main": chip_smoke.yeast_like_genome(), "dna5": [("chrK", dna5)],
-               "large": [("chrL", make_genomelike(LARGE_BP, seed=chip_smoke.SEED + 2))]}
+    def dna5():
+        rng = np.random.default_rng(chip_smoke.SEED + 1)
+        codes = make_genomelike(chip_smoke.DNA5_BP, seed=chip_smoke.SEED + 1)
+        for s in rng.integers(0, len(codes) - 2000, 40):  # N runs, as the smoke's
+            codes[s : s + int(rng.integers(10, 1500))] = 4
+        return [("chrK", codes)]
+
+    genomes = {"main": chip_smoke.yeast_like_genome, "dna5": dna5,
+               "large": lambda: [("chrL", make_genomelike(LARGE_BP, seed=chip_smoke.SEED + 2))]}
     paths = {}
-    for key, chroms in genomes.items():
+    for key in keys:
         t = time.perf_counter()
+        chroms = genomes[key]()
         fa = os.path.join(work, f"{key}.fa")
         chip_smoke.write_fasta(fa, chroms)
         paths[key] = os.path.join(work, f"idx_{key}")
         if cli_main(["index", "-F", fa, "-I", paths[key]]) != 0:
             raise RuntimeError(f"index of {key} failed")
-        print(f"kernels: locate's {key} index ({sum(len(c) for _, c in chroms)} bp) built "
+        print(f"kernels: the {key} index ({sum(len(c) for _, c in chroms)} bp) built "
               f"in {time.perf_counter() - t:.1f} s", flush=True)
     return paths
 
@@ -584,9 +689,12 @@ def build_locate_indexes(work) -> dict:
 def run_kernels(other, only) -> int:
     """--kernels: A B B A processes; per case each process's ms, the
     median ratio A / B, and the sweep of this checkout's processes."""
+    # locate walks all three indexes, seed_lookup reads the main one's tables
+    keys = [key for key, users in (("main", {"locate", "seed_lookup"}), ("dna5", {"locate"}),
+                                   ("large", {"locate"}))
+            if only is None or users & set(only)]
     with tempfile.TemporaryDirectory(prefix="genmap_abk_") as work:
-        indexes = (build_locate_indexes(work) if only is None or "locate" in only else {})
-        return _run_kernels(other, indexes, only)
+        return _run_kernels(other, build_locate_indexes(work, keys) if keys else {}, only)
 
 
 def _run_kernels(other, indexes, only) -> int:
@@ -622,7 +730,7 @@ def _run_kernels(other, indexes, only) -> int:
         print(f"kernels: {label} {shape}: A {a[0]:.4f} / {a[1]:.4f} ms, B {b[0]:.4f} / "
               f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal); "
               f"L2 warm: A {wa[0]:.4f} / {wa[1]:.4f} ms, B {wb[0]:.4f} / {wb[1]:.4f} ms"
-              + (f"; index_select (A A B B processes) "
+              + (f"; library (A A B B processes) "
                  f"{' / '.join(f'{x:.4f}' for x in lib)} ms" if lib else "")
               + "".join(f"; B {k.removeprefix('var:')} {v[0]:.4f} / {v[1]:.4f} ms"
                         for k, v in extra.items()), flush=True)

@@ -977,7 +977,8 @@ def seed_lookup(index, needles, a_pos, t_seed: int, Fp: int, n_total: int):
     invalid where the window holds an N or the interval is empty; with
     t_seed = 0 it holds the whole index (size n_total, the part's symbols).  Slots P..Fp-1 are
     empty.  Returns (st [5, B, Fp] int32 rows flo, rlo, size (uint32 bits),
-    err = 0, plan id = slot % P; valid [B, Fp] uint8)."""
+    err = 0, plan id = slot % P; valid [B, Fp] uint8).  Every slot is
+    written."""
     if not needles.is_cuda:
         return seed_lookup_plain(index, needles, a_pos, t_seed, Fp, n_total)
     dev = needles.device

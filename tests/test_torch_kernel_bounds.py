@@ -3,8 +3,10 @@ what the kernel's plain version does on the CPU.
 
 `locate_work` counts the LF steps of the walks that `locate_plain` takes
 (with the samples' positions set to 0, locate_plain's i2 is each row's
-step count); `kernel_work("gather_states", ...)` counts the bytes that
-`gather_states_plain` reads and writes.  Small indexes, ~10 s.
+step count); `kernel_work` of `gather_states`, `seed_lookup` and
+`probe_mass` counts the bytes that their plain versions read (the
+validity of every slot, the operands of valid slots only) and write.
+Small indexes, ~10 s.
 """
 
 import dataclasses
@@ -119,3 +121,77 @@ def test_gather_states_work_counts_plain_bytes(Fc, Fe):
     assert nbytes == read + written
     assert f"B={B} Fc={Fc} Fe={Fe}" in shape
     assert cs.variant("gather_states", args) == f"B={B} Fc={Fc} Fe={Fe}"
+
+
+@pytest.mark.parametrize("t_seed,P,Fp", [(0, 3, 4), (1, 2, 16), (5, 3, 4), (5, 7, 8)])
+def test_seed_lookup_work_counts_plain_bytes(t_seed, P, Fp):
+    cs = _smoke()
+    ix = _index(4, 10)
+    assert ix.has_seed and ix.seed_t0 >= t_seed
+    rng = np.random.default_rng(t_seed + P + Fp)
+    B, Ln = 200, 40
+    needles = torch.from_numpy(rng.integers(0, 5, (B, Ln)).astype(np.uint8))
+    a_pos = torch.from_numpy(rng.integers(0, Ln - t_seed + 1, P).astype(np.int32))
+    args = dict(index=ix, needles=needles, a_pos=a_pos, t_seed=t_seed, Fp=Fp,
+                n_total=ix.n_total)
+    st, valid = kernels.seed_lookup_plain(**args)
+    # per (block, plan) its window and three table words; the plans'
+    # window positions once
+    read = (B * P * t_seed * needles.element_size()
+            + (B * P * 3 * ix.seed_mlo.element_size() if t_seed else 0)
+            + a_pos.numel() * a_pos.element_size())
+    written = st.numel() * st.element_size() + valid.numel() * valid.element_size()
+    nbytes, _nops, shape, _reads = cs.kernel_work("seed_lookup", args)
+    assert nbytes == read + written
+    assert shape == f"B={B} P={P} t_seed={t_seed} Fp={Fp}"
+
+
+def _probe_args(has_n, with_mass, with_acc, last, seed):
+    rng = np.random.default_rng(seed)
+    B, F, P, Ln = 300, 12, 3, 90
+    st = np.zeros((5, B, F), np.int64)
+    st[2] = rng.integers(1, 4, (B, F))
+    st[4] = rng.integers(0, P, (B, F))
+    acc = np.stack([rng.integers(0, 3, B) for _ in range(P)] + [rng.random(B) < 0.1], 1)
+    return dict(st=torch.from_numpy(st.astype(np.int32)),
+                valid=torch.from_numpy((rng.random((B, F)) < 0.3).astype(np.uint8)),
+                ovf=torch.from_numpy((rng.random(B) < 0.1).astype(np.uint8)),
+                needles=torch.from_numpy(rng.integers(0, 5, (B, Ln)).astype(np.uint8)),
+                thr=torch.from_numpy(rng.integers(0, 2, P).astype(np.int32)), has_n=has_n,
+                with_mass=with_mass,
+                acc=torch.from_numpy(acc.astype(np.int64)) if with_acc else None, last=last)
+
+
+def _nbytes(ts):
+    ts = ts if isinstance(ts, tuple) else (ts,)
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+@pytest.mark.parametrize("has_n,with_mass,with_acc,last", [
+    (False, False, False, True), (True, False, False, True), (False, True, False, True),
+    (False, False, True, False), (True, True, True, True)])
+def test_probe_mass_work_counts_plain_bytes(has_n, with_mass, with_acc, last):
+    cs = _smoke()
+    args = _probe_args(has_n, with_mass, with_acc, last, 5 * has_n + 3 * with_mass + last)
+    out = kernels.probe_mass_plain(**args)
+    st, valid = args["st"], args["valid"]
+    # every slot's validity, the size and plan words of valid slots, the
+    # overflow flags, the needle rows when they may hold N, the thresholds
+    # and the earlier parts' sums
+    read = (_nbytes(valid) + 2 * st.element_size() * int(valid.bool().sum())
+            + _nbytes(args["ovf"]) + (_nbytes(args["needles"]) if has_n else 0)
+            + _nbytes(args["thr"]) + (_nbytes(args["acc"]) if with_acc else 0))
+    nbytes, _nops, shape, _reads = cs.kernel_work("probe_mass", args)
+    assert nbytes == read + _nbytes(out)
+    assert shape == f"B=300 F=12 P=3 valid={int(valid.bool().sum())}"
+
+
+@pytest.mark.parametrize("with_mass", [True, False])
+def test_probe_mass_reduced_work_counts_plain_bytes(with_mass):
+    cs = _smoke()
+    args = _probe_args(False, with_mass, True, True, 7)
+    args.update(st=None, valid=None, ovf=None, needles=None)
+    out = kernels.probe_mass_plain(**args)
+    nbytes, _nops, shape, _reads = cs.kernel_work("probe_mass", args)
+    assert nbytes == _nbytes(args["acc"]) + _nbytes(args["thr"]) + _nbytes(out)
+    assert shape == "B=300 P=3 (reduced)"

@@ -290,34 +290,88 @@ def test_count_tail_exact(cuda, alpha, rev_compl):
         assert ref[1].any() and ref[3].any()
 
 
+def _probe_inputs(rng, B, F, P, Ln, big, thr_fn):
+    st = np.zeros((5, B, F), np.int64)
+    st[2] = rng.integers(1, 4, (B, F))
+    big = rng.random((B, F)) < big  # sums past 2^32 saturate
+    st[2][big] = rng.integers(2**31, 2**32, int(big.sum()))
+    st[4] = rng.integers(0, P, (B, F))
+    valid = rng.random((B, F)) < rng.random((B, 1)) * 0.3
+    ovf = rng.random(B) < 0.1
+    needles = rng.integers(0, 4, (B, Ln))
+    needles[rng.random((B, Ln)) < 0.002] = 4
+    thr = thr_fn(P)
+    return [torch.from_numpy(st.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(valid.astype(np.uint8)),
+            torch.from_numpy(ovf.astype(np.uint8)),
+            _unaligned(needles.astype(np.uint8), (B + F + Ln) % 16),
+            torch.from_numpy(np.asarray(thr, np.int32))]
+
+
+def _to(args, cuda):
+    """The arguments on the card, the needle rows as far off their 16-byte
+    alignment as on the CPU."""
+    out = [a.to(cuda) for a in args]
+    out[3] = _unaligned(args[3].numpy(), args[3].data_ptr() % 16, cuda)
+    return out
+
+
+def _unaligned(a, off, device="cpu"):
+    """A contiguous copy of uint8 array `a` whose data starts `off` bytes
+    past a 16-byte boundary."""
+    buf = torch.zeros(a.size + 32, dtype=torch.uint8, device=device)
+    base = (16 - buf.data_ptr() % 16) % 16
+    view = buf[base + off : base + off + a.size].view(a.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return view
+
+
+# (B, F, P, Ln): F of one lane a block, under a warp, over a warp and
+# 4,096 slots; P of 1 to the kernel's 16 plans
+_PROBE_SHAPES = ((200, 4, 3, 148), (64, 40, 7, 37), (33, 300, 2, 90), (50, 1, 1, 9),
+                 (70, 7, 3, 30), (40, 31, 16, 148), (30, 33, 7, 5), (3, 4096, 3, 148))
+
+
 @pytest.mark.parametrize("alpha", [4, 5])
 @pytest.mark.parametrize("with_mass", [True, False])
-def test_probe_mass(cuda, alpha, with_mass):
-    rng = np.random.default_rng(11 + alpha)
-    for B, F, P, Ln in ((200, 4, 3, 148), (64, 40, 7, 37), (33, 300, 2, 90)):
-        st = np.zeros((5, B, F), np.int64)
-        st[2] = rng.integers(1, 4, (B, F))
-        big = rng.random((B, F)) < 0.05  # sums past 2^32 saturate
-        st[2][big] = rng.integers(2**31, 2**32, int(big.sum()))
-        st[4] = rng.integers(0, P, (B, F))
-        valid = rng.random((B, F)) < rng.random((B, 1)) * 0.3
-        ovf = rng.random(B) < 0.1
-        needles = rng.integers(0, 4, (B, Ln))
-        needles[rng.random((B, Ln)) < 0.002] = 4
-        thr = rng.integers(0, 2, P)
-        args = [torch.from_numpy(st.astype(np.uint32).view(np.int32)),
-                torch.from_numpy(valid.astype(np.uint8)),
-                torch.from_numpy(ovf.astype(np.uint8)),
-                torch.from_numpy(needles.astype(np.uint8)),
-                torch.from_numpy(thr.astype(np.int32))]
+@pytest.mark.parametrize("thr_kind", ["0/1", "large"])
+def test_probe_mass(cuda, alpha, with_mass, thr_kind):
+    """Thresholds of 0 and 1 take the decision-only combine (with_mass
+    the exact one); thresholds of 7 and up the exact 64-bit combine."""
+    rng = np.random.default_rng(11 + alpha + 31 * (thr_kind == "large"))
+    skips, blocks = 0, 0
+    for B, F, P, Ln in _PROBE_SHAPES:
+        args = _probe_inputs(rng, B, F, P, Ln, 0.05,
+                             lambda P: rng.integers(0, 2, P) if thr_kind == "0/1"
+                             else rng.choice([1, 7, 8, 2**31 - 1], P))
         ref = kernels.probe_mass(*args, alpha == 5, with_mass)
-        got = kernels.probe_mass(*(a.to(cuda) for a in args), alpha == 5, with_mass)
+        got = kernels.probe_mass(*_to(args, cuda), alpha == 5, with_mass)
         torch.cuda.synchronize()
         ref = ref if with_mass else (ref,)
         got = got if with_mass else (got,)
         for a, b in zip(got, ref):
             _eq(a, b)
-        assert ref[0].any() and not ref[0].all()
+        skips += int(ref[0].sum())
+        blocks += B
+        if (B, F, P, Ln) in _PROBE_SHAPES[:3] and thr_kind == "0/1":
+            assert ref[0].any() and not ref[0].all()
+    assert 0 < skips < blocks
+
+
+def test_probe_mass_lane_masses_carry(cuda):
+    """Sizes that would carry a packed byte or wrap 32 bits if a lane's
+    mass were not capped: 8 and 256 per slot, 2^32 - 1, on 0/1 thresholds."""
+    rng = np.random.default_rng(77)
+    for B, F, P, Ln in _PROBE_SHAPES:
+        args = _probe_inputs(rng, B, F, P, Ln, 0.0, lambda P: rng.integers(0, 2, P))
+        sizes = rng.choice([0, 1, 8, 256, 2**32 - 256, 2**32 - 1], (B, F))
+        sizes[rng.random((B, F)) < 0.7] = 0
+        args[0][2] = torch.from_numpy(sizes.astype(np.uint32).view(np.int32))
+        args[1] = torch.from_numpy((rng.random((B, F)) < 0.5).astype(np.uint8))
+        ref = kernels.probe_mass(*args, False)
+        got = kernels.probe_mass(*_to(args, cuda), False)
+        torch.cuda.synchronize()
+        _eq(got, ref)
 
 
 @pytest.mark.parametrize("with_mass", [True, False])
@@ -594,12 +648,35 @@ def test_dimer_step_lane_paths(cuda, alpha, case):
                 assert ref[1].any()  # valid candidates
 
 
+@pytest.mark.parametrize("Ln", [1, 3, 5, 29, 37, 148])
+def test_probe_mass_n_window_edges(cuda, Ln):
+    """N only in a row's first or last byte, beside rows without one, at
+    every offset of the rows from a 16-byte boundary: a word that holds
+    bytes of two rows must count only its own row's."""
+    rng = np.random.default_rng(90 + Ln)
+    B, F, P = 64, 4, 3
+    for off in range(16):
+        args = _probe_inputs(rng, B, F, P, Ln, 0.0, lambda P: np.full(P, 2**31 - 1))
+        needles = np.zeros((B, Ln), np.uint8)
+        kind = rng.integers(0, 3, B)
+        needles[kind == 1, 0] = 4
+        needles[kind == 2, Ln - 1] = 4
+        args[3] = _unaligned(needles, off)
+        ref = kernels.probe_mass(*args, True, True)
+        got = kernels.probe_mass(*_to(args, cuda), True, True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        _eq(ref[2], torch.from_numpy((kind != 0).astype(np.uint8)))
+
+
 @pytest.mark.parametrize("alpha", [4, 5])
-def test_probe_mass_accumulates_over_parts(cuda, alpha):
+@pytest.mark.parametrize("B,F,P,Ln", [(300, 12, 3, 90), (40, 1, 1, 9), (60, 33, 7, 37),
+                                      (20, 31, 16, 148), (3, 4096, 3, 148)])
+def test_probe_mass_accumulates_over_parts(cuda, alpha, B, F, P, Ln):
     """Three parts' launches: two adding into the running sum, the third
     deciding (and reporting the summed mass)."""
     rng = np.random.default_rng(31 + alpha)
-    B, F, P, Ln = 300, 12, 3, 90
     needles = rng.integers(0, 4, (B, Ln))
     needles[rng.random((B, Ln)) < 0.002] = 4
     needles = torch.from_numpy(needles.astype(np.uint8))
@@ -622,7 +699,8 @@ def test_probe_mass_accumulates_over_parts(cuda, alpha):
         for a, b in zip(got if last else (got,), ref if last else (ref,)):
             _eq(a, b)
         acc = {"cpu": ref, "cuda": got}
-    assert ref[0].any() and not ref[0].all()
+    if (B, F, P, Ln) == (300, 12, 3, 90):
+        assert ref[0].any() and not ref[0].all()
 
 
 def test_engine_multipart_dimer_cuda_equals_cpu(cuda):
@@ -665,24 +743,36 @@ def test_compact_count(cuda, R, rows, M, F):
 
 
 @pytest.mark.parametrize("alpha", [4, 5])
-def test_seed_lookup(cuda, alpha):
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 6, 7])
+def test_seed_lookup(cuda, alpha, P):
+    """Every t_seed up to the tables' depth, padding up to 256 slots, 8,192
+    blocks, rows shorter than 8 and of 1,100 bytes, needles off their word
+    alignment, N windows (all-N rows too) and empty intervals (the deepest
+    levels of a small index)."""
     data, gi, ci = _indexes(alpha, cuda)
     assert gi.has_seed
-    rng = np.random.default_rng(50 + alpha)
-    B, Ln, P = 500, 60, 3
-    needles = rng.integers(0, 4, (B, Ln))
-    needles[rng.random((B, Ln)) < 0.01] = 4
-    needles = torch.from_numpy(needles.astype(np.uint8))
-    for t_seed in (0, 1, ci.seed_t0):
-        a_pos = torch.from_numpy(rng.integers(0, Ln - max(1, t_seed), P).astype(np.int32))
-        for Fp in (P, 16):
-            ref = kernels.seed_lookup(ci, needles, a_pos, t_seed, Fp, ci.n_total)
-            got = kernels.seed_lookup(gi, needles.to(cuda), a_pos.to(cuda), t_seed, Fp,
-                                      gi.n_total)
+    rng = np.random.default_rng(50 + alpha + 10 * P)
+    for t_seed in range(ci.seed_t0 + 1):
+        for B, Ln, Fp in ((500, 60, P), (8192, 148, max(P, 4)), (300, max(t_seed, 1) + 2, 16),
+                          (40, 1100, 256), (1, 29, P + 1)):
+            needles = rng.integers(0, 4, (B, Ln))
+            needles[rng.random((B, Ln)) < 0.01] = 4
+            needles[rng.random(B) < 0.05] = 4
+            off = int(rng.integers(0, 16))
+            cpu_needles = _unaligned(needles.astype(np.uint8), off)
+            a_pos = torch.from_numpy(rng.integers(0, Ln - t_seed + 1, P).astype(np.int32))
+            ref = kernels.seed_lookup(ci, cpu_needles, a_pos, t_seed, Fp, ci.n_total)
+            got = kernels.seed_lookup(gi, _unaligned(needles.astype(np.uint8), off, cuda),
+                                      a_pos.to(cuda), t_seed, Fp, gi.n_total)
             torch.cuda.synchronize()
             for a, b in zip(got, ref):
                 _eq(a, b)
-            assert ref[1][:, :P].any()
+            if t_seed == 0:
+                assert ref[1][:, :P].all()
+            if (B, Ln) == (500, 60):  # the original shape looks windows up
+                assert ref[1][:, :P].any()
+    # the deepest level of this small index holds empty intervals
+    assert not bool((ci.seed_size[rank.seed_level_offset(ci.seed_t0):] != 0).all())
 
 
 @pytest.mark.parametrize("Fc,Fe", [(64, 16), (16, 64), (32, 32), (4, 4), (4, 8),
