@@ -22,8 +22,13 @@ dimer_tier=False (B: mono rows only), in the order A, B, B, A, at (100,2)
 and then at (24,1).
 
 With --kernels, no map: `candidate_step`, `dimer_step`, `extract_needles`,
-`compact`, `count_tail`, `gather_states`, `locate`, `seed_lookup` and
-`probe_mass` of OTHER_CHECKOUT (A) and of this checkout (B) are timed in
+`compact`, `count_tail`, `gather_states`, `locate`, `seed_lookup`,
+`probe_mass`, the seed-table build (each checkout's
+`rank.with_seed_tables`, on the three indexes below at their own depths:
+its launches, peak allocated bytes, host issue time, each launch's device
+ms and PyTorch's own device ops under the profiler, and the upload's wall
+time) and `row_gather` (every lanes value of each checkout, and its
+default) of OTHER_CHECKOUT (A) and of this checkout (B) are timed in
 turns, A B B A, one process each, on the same seeded inputs (made on the
 card from a torch.Generator seed; candidate_step reads a random rank table
 of the main index's size, dimer_step a random dimer table of its size;
@@ -44,11 +49,13 @@ gather_states is timed beside `index_select` of the same rows and
 probe_mass beside `scatter_add` of the same masses (chip_smoke.py's
 `library_fn`) in the same process.  This checkout's processes also time
 `candidate_step`, `dimer_step`, `extract_needles`, `locate`,
-`gather_states`, `seed_lookup` and `probe_mass` at each of their cases in
+`gather_states`, `seed_lookup`, `probe_mass`, `seed_build` and
+`row_gather` (its bulk copies) at each of their cases in
 VARIANTS (their sources built with CS_LANES / CS_COOP_MAX, DS_LANES /
 DS_COOP_MAX / DS_WAVES, EN_THREADS / EN_WIDE_BYTES, LC_LANES / LC_THREADS
-/ LC_WAVES / LC_MIN_BLOCKS, GS_THREADS, SL_THREADS and PM_THREADS /
-PM_CAP / PM_SPEC_F / PM_MIN_BLOCKS overridden, the measurement behind
+/ LC_WAVES / LC_MIN_BLOCKS, GS_THREADS, SL_THREADS, PM_THREADS /
+PM_CAP / PM_SPEC_F / PM_MIN_BLOCKS, SB_SHALLOW / SB_THREADS and RB_STAGES
+overridden, the measurement behind
 those defaults; outputs must equal the kernel's; each variant's ptxas
 registers printed), two memsets of the two step
 kernels' valid2 and far as a floor for the bytes every state costs, and
@@ -248,6 +255,21 @@ KERNEL_CASES = (
     # valid of 8,192 x 6 slots; a share of 0.0467 draws ~878, one a block)
     ("probe_mass largest, the map's: B=8192 F=6 P=3, ~878 valid", "probe_mass",
      (8192, 6, 3, 148, False, "one", 0.0467)),
+    # the seed-table build (`rank.with_seed_tables` of each checkout) of a
+    # whole index part at its own depth: the main index (t0 12), the Dna5
+    # index (t0 11) and the 64 Mbp one (t0 12, rank rows twice L2)
+    ("seed_build main index (12.07 Mbp), t0 = its depth", "seed_build", ("main",)),
+    ("seed_build Dna5 index (1 Mbp), t0 = its depth", "seed_build", ("dna5",)),
+    ("seed_build 64 Mbp index, t0 = its depth", "seed_build", ("large",)),
+    # row_gather: entry, row bytes, table bytes, ids (chains), chunk; every
+    # lanes value of each checkout timed, the default beside A's
+    ("row_gather the harness's sum: ND 4,096, CHUNK 128, 512 B rows, 16 MB", "row_gather",
+     ("sum", 512, 31_250 * 512, 4096, 128)),
+    *((f"row_gather {kind} {rb} B rows, {label} table", "row_gather",
+       (kind, rb, nbytes, (1 << 20) if kind == "sum" else (1 << 17), 1))
+      for kind in ("sum", "chain") for label, nbytes in (("20 MB", 20_000_000),
+                                                        ("4 GiB", 4 << 30))
+      for rb in (208, 416, 512)),
 )
 # locate's indexes (kernel_inputs "locate" shape[0]); LARGE_BP: the
 # flagship corpus size, whose index (paired rank rows ~104 MB, twice L2)
@@ -293,6 +315,9 @@ VARIANTS = {
                    {"DS_LANES": 2}, {"DS_LANES": 8}, {"DS_LANES": 16}, {"DS_WAVES": 2}),
     "extract_needles": ({"EN_WIDE_BYTES": 0}, {"EN_WIDE_BYTES": 1 << 30},
                         {"EN_THREADS": 128}),
+    "seed_build": ({"SB_SHALLOW": 6}, {"SB_SHALLOW": 10}, {"SB_THREADS": 256},
+                   {"SB_SHALLOW": 6, "SB_THREADS": 256}),
+    "row_gather": ({"RB_STAGES": 1}, {"RB_STAGES": 3}, {"RB_STAGES": 4}),
 }
 # compact shapes timed with each of the two wide-row regimes forced: rows
 # of the map's widths, 16 MB of validity per call or 64 rows, at a mean
@@ -376,7 +401,19 @@ def kernel_inputs(kind, shape, dev, seed, indexes=None):
         rows = locate_rows(index.n_total, N, clustered, seed)
         pos = torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(dev)
         return dict(index=index, pos=pos, valid=torch.ones(N, dtype=torch.uint8, device=dev))
+    if kind == "seed_build":
+        from genmap_tpu_torch.ops import rank
+
+        index = locate_index(indexes[shape[0]], dev)
+        return dict(index=index, t0=rank.seed_depth(index.n_total))
     g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "row_gather":
+        entry, rb, nbytes, n, chunk = shape
+        NR = nbytes // rb
+        table = torch.randint(0, 2**30, (NR, rb // 4), dtype=torch.int32, device=dev,
+                              generator=g)
+        ids = torch.randint(0, NR, (n,), dtype=torch.int32, device=dev, generator=g)
+        return dict(entry=entry, table=table, idx=ids, chunk=chunk)
     if kind == "seed_lookup":
         # needle windows of the main genome at seeded starts (N bytes put
         # in at n_share), the main index's own seed tables
@@ -587,8 +624,8 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
     reports = kernels.build([kernels.KERNELS[k] for k in
                              ("candidate_step", "dimer_step", "extract_needles", "compact",
                               "count_tail", "gather_states", "locate", "seed_lookup",
-                              "probe_mass")
-                             if only is None or k in only])
+                              "probe_mass", "seed_build", "row_gather")
+                             if k in kernels.KERNELS and (only is None or k in only)])
     variants, ptxas = build_variants(kernels, only) if sweep else ({}, {})
     for name, rep in reports.items():
         ptxas[name] = [ln.strip() for ln in rep.splitlines()
@@ -603,13 +640,33 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
+    def seed_tables(index, t0):  # the checkout's own build, whatever it runs
+        built = kernels.rank.with_seed_tables(index, t0)
+        return built.seed_mlo, built.seed_size
+
+    def row_gather(entry, table, idx, chunk, lanes=None):  # lanes None: the default
+        kw = {} if lanes is None else dict(lanes=lanes)
+        if entry == "sum":
+            return kernels.row_gather_sum(table, idx, chunk, **kw)
+        return kernels.row_gather_chain(table, idx, 8, **kw)
+
     res = []
     for n, label, kind, shape in kernel_cases(only):
         args = kernel_inputs(kind, shape, dev, 2026 + n, indexes)
-        fn = getattr(kernels, kind)
+        fn = {"seed_build": seed_tables, "row_gather": row_gather}.get(
+            kind, getattr(kernels, kind, None))
         sha = digest(kind, fn(**args), args)
         row = dict(label=label, ms=cs.device_ms(lambda: fn(**args)),
                    warm=cs.device_ms(lambda: fn(**args), cold=False), sha=sha)
+        if kind == "seed_build":
+            row.update(seed_build_split(kernels, cs, fn, args),
+                       upload_s=upload_seconds(kernels, indexes[shape[0]]))
+        if kind == "row_gather":  # every lanes value of this checkout
+            row["lanes"] = {}
+            for lanes in kernels.ROW_GATHER_LANES:
+                if digest(kind, row_gather(**args, lanes=lanes), args) != sha:
+                    raise AssertionError(f"row_gather lanes {lanes}: outputs differ at {label}")
+                row["lanes"][str(lanes)] = cs.device_ms(lambda: row_gather(**args, lanes=lanes))
         lib = (cs.library_fn(kind, args) if kind in ("gather_states", "probe_mass")
                else None)
         if lib is not None:
@@ -623,13 +680,16 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
             row["memset"] = cs.device_ms(lambda: (v2.zero_(), far.zero_()))
             del v2, far
         # the wrapper launches the module's kernel object: swap in each variant
-        main = getattr(kernels, kind.upper())
+        main = getattr(kernels, kind.upper(), None)
+        # row_gather's variants change the bulk copies only (lanes 0)
+        vfn = (lambda: row_gather(**args, lanes=0)) if kind == "row_gather" else (
+            lambda: fn(**args))
         for tag, k in variants.get(kind, ()):
             setattr(kernels, kind.upper(), k)
             try:
-                if digest(kind, fn(**args), args) != sha:
+                if digest(kind, vfn(), args) != sha:
                     raise AssertionError(f"{kind} {tag}: outputs differ at {label}")
-                row[f"var:{tag}"] = cs.device_ms(lambda: fn(**args))
+                row[f"var:{tag}"] = cs.device_ms(vfn)
             finally:
                 setattr(kernels, kind.upper(), main)
         res.append(row)
@@ -650,6 +710,57 @@ def time_kernel_cases(kernels, here, sweep, indexes, only):
             del args
     res.append(dict(ptxas=ptxas))
     return res
+
+
+def seed_build_split(kernels, cs, fn, args) -> dict:
+    """Where one seed-table build's time goes: its launches (by kernel), the
+    peak device bytes it allocates above what was allocated before, the
+    host's issue time (no sync), and under torch.profiler the device ms of
+    the port's kernels and of PyTorch's own device ops, beside the profiled
+    call's wall time (to a synchronize)."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(**args)
+    issue_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    del out
+    wall, calls, _by_sym, other_ms, n_other = cs.profiled_device_times(lambda: fn(**args))
+    return dict(launches=launches, peak_bytes=peak, host_issue_ms=issue_ms,
+                profiled_wall_ms=wall * 1e3,
+                kernel_ms={k: float(sum(v)) for k, v in calls.items()},
+                kernel_calls={k: len(v) for k, v in calls.items()},
+                launch_ms={k: [round(float(x), 5) for x in v] for k, v in calls.items()},
+                other_ms=other_ms, other_ops=n_other)
+
+
+def upload_seconds(kernels, path, reps: int = 3) -> float:
+    """Median host seconds of one `DeviceIndex.from_part` of the index at
+    `path` (light: the rank rows, text-free; the seed tables built), to a
+    synchronize; the host index is loaded once before."""
+    import time
+
+    import torch
+
+    from genmap_tpu_torch.index.fmindex import FMIndexData
+
+    data = FMIndexData.load(path)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kernels.rank.DeviceIndex.from_part(data, data.parts[0], light=True, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times[1:]))
 
 
 def build_locate_indexes(work, keys) -> dict:
@@ -690,8 +801,9 @@ def run_kernels(other, only) -> int:
     """--kernels: A B B A processes; per case each process's ms, the
     median ratio A / B, and the sweep of this checkout's processes."""
     # locate walks all three indexes, seed_lookup reads the main one's tables
-    keys = [key for key, users in (("main", {"locate", "seed_lookup"}), ("dna5", {"locate"}),
-                                   ("large", {"locate"}))
+    keys = [key for key, users in (("main", {"locate", "seed_lookup", "seed_build"}),
+                                   ("dna5", {"locate", "seed_build"}),
+                                   ("large", {"locate", "seed_build"}))
             if only is None or users & set(only)]
     with tempfile.TemporaryDirectory(prefix="genmap_abk_") as work:
         return _run_kernels(other, build_locate_indexes(work, keys) if keys else {}, only)
@@ -722,11 +834,15 @@ def _run_kernels(other, indexes, only) -> int:
         wb = [x["warm"] for x in runs["B"]]
         extra = {k: [x[k] for x in runs["B"]] for k in runs["B"][0]
                  if k.startswith("var:") or k == "memset"}
+        details = {p: [{k: x[k] for k in x if k not in ("label", "ms", "warm", "sha")
+                        and not k.startswith("var:") and k != "memset"} for x in runs[p]]
+                   for p in ("A", "B")}
         lib = [x["library"] for p in ("A", "B") for x in runs[p] if "library" in x]
         summary["cases"][label] = dict(shape=shape, A_ms=a, B_ms=b, A_warm_ms=wa, B_warm_ms=wb,
                                        A_over_B=float(np.median(a) / np.median(b)),
                                        **({"library_ms": lib} if lib else {}),
-                                       **{f"B_{k}": v for k, v in extra.items()})
+                                       **{f"B_{k}": v for k, v in extra.items()},
+                                       details=details)
         print(f"kernels: {label} {shape}: A {a[0]:.4f} / {a[1]:.4f} ms, B {b[0]:.4f} / "
               f"{b[1]:.4f} ms, A/B {np.median(a) / np.median(b):.2f}x (outputs equal); "
               f"L2 warm: A {wa[0]:.4f} / {wa[1]:.4f} ms, B {wb[0]:.4f} / {wb[1]:.4f} ms"
@@ -734,6 +850,10 @@ def _run_kernels(other, indexes, only) -> int:
                  f"{' / '.join(f'{x:.4f}' for x in lib)} ms" if lib else "")
               + "".join(f"; B {k.removeprefix('var:')} {v[0]:.4f} / {v[1]:.4f} ms"
                         for k, v in extra.items()), flush=True)
+        for p in ("A", "B"):
+            for d in details[p]:
+                if d:
+                    print(f"kernels:   {p}: {json.dumps(d)}", flush=True)
     n = len(cases)
     for j in range(len(COMPACT_SWEEP) if only is None or "compact" in only else 0):
         rows = [p[n + j] for p in results["B"]]

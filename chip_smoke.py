@@ -25,8 +25,10 @@ or of the JAX package.  Phases (any failure exits non-zero):
              card (the unique-infix probe on, dimer twins before the wide
              exact tiers, occupancy calibration of each tier's cohort and,
              as J = 50 >= 16, the split pipeline, as by default), four times:
-             - a checked run: every kernel call of the seed-table build and
-               of the first batch of each program (the probe, each tier's
+             - a checked run: every kernel call of the seed-table build
+               (also checked on the Dna5 index and on each multipart part at
+               the shared depth) and of the first batch of each program (the
+               probe, each tier's
                calibration batch, the first phase-A batch of each tier and
                the first phase-B batch of each (rung, mode)) is held against
                its plain version (exactly), and that batch is profiled; the
@@ -67,6 +69,8 @@ or of the JAX package.  Phases (any failure exits non-zero):
              >= 10,000-k-mer sub-selection on the card and on the CPU, whose
              output files must be byte-equal
   8. multipart  chrI-chrVII indexed whole and with `-xm` into three parts:
+             each part's seed tables built at the depth a part mesh shares
+             (the smallest part's) and checked against the plain build;
              `map -K 100 -E 2` and `-K 24 -E 1` of both on the card (first
              batch of each program checked, the probe's per-part mass sums
              included), frequencies equal; `map -d` of a >= 10,000-k-mer
@@ -95,9 +99,11 @@ or of the JAX package.  Phases (any failure exits non-zero):
              to the plain version) and its sweep of random-row read rates
              over row width, table size (L2- to hg38-sized), id order,
              dependence, lanes and blocks per SM, counters set to 0 just
-             before and read just after (row_gather must launch); the
-             kernel's edge cases against its plain version; the read rates
-             of candidate_step and dimer_step beside the sweep's
+             before and read just after (row_gather must launch), the bulk
+             copies (lanes 0) swept at the rank rows' widths (208, 276, 416,
+             512 B) from the 20 MB, 256 MiB and 4 GiB tables; the kernel's edge cases
+             (every lanes value, 0 included) against its plain version; the
+             read rates of candidate_step and dimer_step beside the sweep's
  12. kernels the largest checked call of each kernel (and of each
              candidate_step and dimer_step variant, of compact's short-row,
              long-row and counting calls, of count_tail at Fe = 1 and with
@@ -108,6 +114,10 @@ or of the JAX package.  Phases (any failure exits non-zero):
              dependent row reads at its sub-row width, as many as its LF
              steps); compact must have been checked in each regime with
              count on and off
+ 13. seed tables  the build (`with_seed_tables`: seed_build's launches and
+             no other kernel) on the main index: device ms, launches, bound,
+             its multiple of the launch floor and its peak allocated bytes;
+             then the per-batch lookup (seed_lookup) at two batch sizes
 
 candidate_step's and dimer_step's calls are held against the plain version
 under the kernel's output contract (`kernels.candidate_step_view`,
@@ -115,8 +125,8 @@ under the kernel's output contract (`kernels.candidate_step_view`,
 contract defines, and the compaction of out by valid2); every other
 kernel's outputs in full.
 
-Output: a line per kernel (ten), `{"kernels": [...]}`, the card's name and
-power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
+Output: `{"kernels": [...]}` (eleven kernels), the card's name and power
+limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -149,10 +159,12 @@ DNA5_BP = 1_000_000  # Dna5 index of phase 2
 B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
 TIMED_RUNS = 3
 NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
-         "probe_mass", "locate", "dimer_step", "seed_lookup", "gather_states")
-# the kernels of the whole-genome map (no CSV)
+         "probe_mass", "locate", "dimer_step", "seed_lookup", "gather_states",
+         "seed_build")
+# the kernels of the whole-genome map (no CSV; seed_build at the index upload)
 MAIN_NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
-              "probe_mass", "dimer_step", "seed_lookup", "gather_states")
+              "probe_mass", "dimer_step", "seed_lookup", "gather_states",
+              "seed_build")
 EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
 DEDUP_CHROMS = 4  # chrI-chrIV
 MP_CHROMS = 7  # chrI-chrVII, the multi-part phase's genome
@@ -286,7 +298,8 @@ class _Checker:
     """While `on`, every call of a kernel wrapper made through the engine is
     also computed by the kernel's plain version (`kernels.<name>_plain`) on
     the same inputs and must agree exactly; the largest call of each kernel
-    seen while `keep` is set is kept for timing."""
+    seen while `keep` is set is kept for timing (a checked seed_build call,
+    an upload's and not a batch's, is always kept)."""
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -332,8 +345,11 @@ class _Checker:
                                  f"{self.phase} (max abs err {err}, "
                                  f"{variant(name, args)})")
         size = sum(x.numel() for x in args.values() if hasattr(x, "numel"))
+        keep = self.keep
+        if name == "seed_build":
+            size, keep = got[0].numel(), True
         for key in timing_keys(name, args):
-            if self.keep and (key not in self.largest or size > self.largest[key][0]):
+            if keep and (key not in self.largest or size > self.largest[key][0]):
                 self.largest[key] = (size, args, self.phase)
 
 
@@ -399,6 +415,8 @@ def variant(name, args) -> str:
                 f"pass={args['with_pass']}")
     if name == "locate":
         return f"A={args['index'].nchars} sampling={args['index'].sampling}"
+    if name == "seed_build":
+        return f"A={args['index'].nchars} t0={args['t0']}"
     N = args["valid"].numel()
     return (f"Fe={N // (args['cnt'].numel() * args['J'])} rc={args['rev_compl']} "
             f"exact={bool(args.get('with_exact'))}")
@@ -516,6 +534,8 @@ def kernel_work(name, args):
         return locate_work(args)
     if name == "dimer_step":
         return dimer_work(args)
+    if name == "seed_build":
+        return seed_build_work(args)
     cnt, J = args["cnt"], args["J"]
     N = args["valid"].numel()
     v = args["valid"].bool()
@@ -528,6 +548,80 @@ def kernel_work(name, args):
     nops = 6 * N + 30 * n_strand + 4 * n_exact
     return nbytes, nops, (f"B={cnt.numel()} J={J} Fe={N // (cnt.numel() * J)} valid={nvalid}"
                           + (f" exact={n_exact}" if exact else "")), 0
+
+
+def seed_build_parent_ops(ix, lo, sz):
+    """Operations to count the four children of each parent (lo, sz) as
+    csrc/seed_build.cu's sb_children does: lo's occ over the nearer half of
+    its sub-row (`sb_occ`: the code words from the sub-row's start through
+    lo's word, or from lo's word to the end where lo lies in the upper half
+    of a sub-row that is not the last; ~10 ops a word, 12 for the start
+    counts, 4 a word for the sentinel and N bit words on the same side, only
+    where the sub-row's start count differs from the next one's, and always
+    in the last sub-row); hi the same way, or, where hi shares lo's sub-row,
+    only the words between the two offsets (`sb_occ_add`; nothing for an
+    empty interval).  int64 tensor, one entry per parent."""
+    import torch
+
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    subw = sub_width(ix.has_n)
+    last_sub = ix.fwd_blocks.shape[0] - 1
+
+    def occ_ops(p):
+        q, off = p >> 9, p & 511
+        kb = off >> 4
+        last = q == last_sub
+        up = (off >= 256) & ~last
+        code_words = torch.where(up, 32 - kb, kb + 1)
+        bit_words = torch.where(up, 16 - (off >> 5), (off + 31) >> 5)
+        rows = ix.fwd_blocks
+
+        def differs(col):  # the sub-row's start count against the next one's
+            return last | (rows[q, col] != rows[q, subw + col])
+
+        nbit = differs(35).to(torch.int64)
+        if ix.has_n:
+            nbit = nbit + differs(52).to(torch.int64)
+        return 10 * code_words + 12 + 4 * nbit * bit_words
+
+    hi = (lo + sz) & rank.MASK32
+    same = ((hi >> 9) == (lo >> 9)) & (hi >= lo)
+    off_lo, off_hi = lo & 511, hi & 511
+    between = torch.where(
+        sz != 0,
+        10 * (((off_hi + 15) >> 4) - (off_lo >> 4))
+        + 4 * (1 + ix.has_n) * (((off_hi + 31) >> 5) - (off_lo >> 5)) + 8, 0)
+    return occ_ops(lo) + torch.where(same, between, occ_ops(hi))
+
+
+def seed_build_work(args, tables=None):
+    """Bytes and operations of one seed_build call, as the data need them:
+    the tables written once (the plain version's outputs, or `tables`) and
+    each distinct rank sub-row that a bound of a parent (levels 0..t0-1)
+    falls in read once; per parent the operations of its two counts
+    (`seed_build_parent_ops`), and 8 per child written."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    ix, t0 = args["index"], args["t0"]
+    mlo, size = tables if tables is not None else kernels.seed_build_plain(ix, t0)
+    npar = rank.seed_level_offset(t0)
+    lo = rank.u32(mlo[:npar])
+    sz = rank.u32(size[:npar])
+    hi = (lo + sz) & rank.MASK32
+    bounds = torch.cat([lo, hi])
+    n_rows = int(torch.unique(bounds >> 9).numel()) if npar else 0
+    subw = sub_width(ix.has_n)
+    nbytes = 4 * (mlo.numel() + size.numel()) + n_rows * subw * 4
+    nops = int(seed_build_parent_ops(ix, lo, sz).sum()) + 8 * (mlo.numel() - 1)
+    shape = (f"t0={t0} on the {ix.n_total}-symbol A={ix.nchars} index: "
+             f"{mlo.numel()} entries, {npar} parents, {n_rows} distinct sub-rows read")
+    return nbytes, nops, shape, 0
 
 
 def dimer_work(args):
@@ -782,14 +876,15 @@ def time_kernels(checker, launches, chain_rates):
 
 
 def time_seed_tables(idx):
-    """K2 on the main path's index: the seed-table build (its candidate
-    steps are the candidate_step kernel) beside its byte bound, and the
-    per-batch lookup (`initial_states`: one seed_lookup launch) at two batch
-    sizes."""
+    """K2 on the main path's index: the seed-table build (`with_seed_tables`,
+    the seed_build kernel's launches) beside its bound, the launch floor and
+    its peak allocated bytes, and the per-batch lookup (`initial_states`:
+    one seed_lookup launch) at two batch sizes."""
     import torch
 
+    from genmap_tpu_torch import kernels
     from genmap_tpu_torch.cli.map_cmd import default_overlap
-    from genmap_tpu_torch.index.fmindex import FMIndexData, sub_width
+    from genmap_tpu_torch.index.fmindex import FMIndexData
     from genmap_tpu_torch.ops import rank
     from genmap_tpu_torch.search import engine as se
     from genmap_tpu_torch.search.schemes import plans_for
@@ -797,10 +892,22 @@ def time_seed_tables(idx):
     data = FMIndexData.load(idx)
     index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device="cuda")
     text = rank.DeviceText.from_host(data, "cuda")
-    build_ms = device_ms(lambda: rank.with_seed_tables(index), reps=3)
-    out_bytes = 4 * (index.seed_mlo.numel() + index.seed_size.numel())
-    row_bytes = index.fwd_blocks.shape[0] * sub_width(index.has_n) * 4
-    bound_ms = (out_bytes + row_bytes) / H100_BYTES_PER_S * 1e3
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    build_ms = device_ms(lambda: rank.with_seed_tables(index), reps=10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    built = rank.with_seed_tables(index)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = kernels.launch_counts()
+    del built
+    nbytes, nops, shape, _n = seed_build_work(dict(index=index, t0=index.seed_t0),
+                                              (index.seed_mlo, index.seed_size))
+    bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     x = min(default_overlap(K, E), min(K - 1, K - E - 2))
     o = K - x
     J = K - o + 1
@@ -824,9 +931,16 @@ def time_seed_tables(idx):
         log(f"kernel seed tables (K2): lookup (seed_lookup) of t0={t_seed} levels for "
             f"B={B} blocks x P={sched.P} plans into Fp={Fp} slots: {lookup_ms:.4f} ms "
             f"device, {host_ms:.4f} ms wall per batch")
-    log(f"kernel seed tables (K2): build of t0={index.seed_t0} levels on the "
-        f"{index.n_total}-symbol index: {build_ms:.3f} ms device (bound {bound_ms:.5f} ms "
-        f"by bytes: {out_bytes} B of tables written, {row_bytes} B of rank sub-rows read)")
+    others = {k: v for k, v in launches.items() if v and k != "seed_build"}
+    if launches["seed_build"] <= 0 or others:
+        raise AssertionError(f"the seed-table build launched {launches}")
+    log(f"kernel seed tables (K2): build (seed_build) of t0={index.seed_t0} levels on "
+        f"the {index.n_total}-symbol index ({shape}): {build_ms:.4f} ms device with L2 "
+        f"flushed in {launches['seed_build']} launches ({build_ms / floor_ms:.2f}x the "
+        f"launch floor of {floor_ms:.4f} ms; no other kernel launched); bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B: tables written and distinct rank "
+        f"sub-rows read; {nops} ops); peak allocated {peak} B above what was allocated "
+        f"before (the tables are {4 * (index.seed_mlo.numel() + index.seed_size.numel())} B)")
 
 
 # ---------------------------------------------------------------------------
@@ -852,7 +966,13 @@ def dna5_phase(dev, checker):
     ff = FastaFile(name="dna5.fa")
     ff.ids, ff.seqs = ["chrK"], [seq]
     data = build_index([ff], sampling=10)
-    index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=dev)
+    checker.on, checker.phase = True, "the Dna5 index's seed-table build"
+    try:
+        index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=dev)
+    finally:
+        checker.on = False
+    if not checker.calls["seed_build"]:
+        raise AssertionError("the Dna5 index's seed-table build was not checked")
     text = rank.DeviceText.from_host(data, dev)
     log(f"dna5: {DNA5_BP} bp Dna5 index built and uploaded in "
         f"{time.perf_counter() - t:.2f} s")
@@ -1607,6 +1727,25 @@ def multipart_phase(work, checker):
             f"{[round(p.dimer_flag_frac, 6) for p in parts]}")
     if len(FMIndexData.load(idx["split"]).parts) < 3:
         raise AssertionError("the -xm index has fewer than 3 parts")
+    # each part's seed tables at the depth a part mesh gives them all (the
+    # smallest part's), checked against the plain build like every other
+    from genmap_tpu_torch.ops import rank
+
+    data = FMIndexData.load(idx["split"])
+    shared = min(rank.seed_depth(int(p.n_total)) for p in data.parts)
+    before = checker.calls["seed_build"]
+    checker.on, checker.phase = True, "the multipart parts' seed tables at the shared depth"
+    try:
+        for p in data.parts:
+            rank.DeviceIndex.from_part(data, p, light=True, device="cuda", seed_t0=shared)
+    finally:
+        checker.on = False
+    n = checker.calls["seed_build"] - before
+    if n != len(data.parts):
+        raise AssertionError(f"{n} of {len(data.parts)} shared-depth builds checked")
+    log(f"multipart: seed tables of the {len(data.parts)} parts at the shared depth "
+        f"{shared} (own depths {[rank.seed_depth(int(p.n_total)) for p in data.parts]}) "
+        f"equal to the plain build")
 
     def freq_of(out):
         return np.fromfile(os.path.join(out, "mp.genmap.freq16"), dtype="<u2")
@@ -1958,11 +2097,13 @@ def mesh4_phase(work, refs):
 
 def rowgather_edges(dev) -> int:
     """row_gather_sum and row_gather_chain against their plain versions on
-    the card, every lanes variant: the harness's table shape (16 B vector
-    reads) and a 69-word one (word reads), each also with row sums that all
-    wrap negative; 4,096 ids (whole chunks) and 4,000 (the last 32 dropped);
-    a grid capped at 132 blocks (grid stride); a table that is not 16 B
-    aligned.  Returns the largest error (0), or raises."""
+    the card, every lanes variant (0: the bulk copies): the harness's table
+    shape (16 B vector reads, bulk copies) and a 69-word one (word reads;
+    the bulk entries refuse it and lanes 0 takes the word kernel), each also with row sums that all
+    wrap negative; 4,096 ids (whole chunks), 4,000 (the last 32 dropped)
+    and 4,007 at chunk 1 (a partial last stage of the bulk sum); a grid
+    capped at 132 blocks (grid stride); a table that is not 16 B aligned.
+    Returns the largest error (0), or raises."""
     import torch
 
     from genmap_tpu_torch import kernels
@@ -1977,18 +2118,18 @@ def rowgather_edges(dev) -> int:
             t = torch.from_numpy(table).to(dev)
             shifted = torch.cat([t.new_zeros(1), t.flatten()])[1:].view(NR, W)
             tables = (t, shifted)
-            for ND in (4096, 4000):
+            for ND, chunk in ((4096, 128), (4000, 128), (4007, 1)):
                 idx = torch.from_numpy(rng.integers(0, NR, ND).astype(np.int32)).to(dev)
-                want = int(kernels.row_gather_sum_plain(t, idx))
+                want = int(kernels.row_gather_sum_plain(t, idx, chunk))
                 for tt in tables:
                     for lanes in rg.LANES:
                         for blocks in (0, 132):
-                            got = int(kernels.row_gather_sum(tt, idx, lanes=lanes,
+                            got = int(kernels.row_gather_sum(tt, idx, chunk, lanes=lanes,
                                                              blocks=blocks))
                             if got != want:
                                 raise AssertionError(
-                                    f"row_gather_sum W={W} ND={ND} lanes={lanes} "
-                                    f"blocks={blocks}: {got} != plain {want}")
+                                    f"row_gather_sum W={W} ND={ND} chunk={chunk} "
+                                    f"lanes={lanes} blocks={blocks}: {got} != plain {want}")
                             cases += 1
             idx = torch.from_numpy(rng.integers(0, NR, 1 << 17).astype(np.int32)).to(dev)
             want = int(kernels.row_gather_chain_plain(t, idx))
@@ -2002,9 +2143,10 @@ def rowgather_edges(dev) -> int:
                                 f"row_gather_chain W={W} lanes={lanes} blocks={blocks}: "
                                 f"{got} != plain {want}")
                         cases += 1
-    log(f"rowgather: {cases} edge-case calls equal to plain (W 128 and 69, row sums "
-        f"wrapping negative, ND 4,096 and 4,000, grids auto and 132 blocks, a "
-        f"table off 16 B alignment)")
+    log(f"rowgather: {cases} edge-case calls equal to plain (lanes {rg.LANES}, 0 the "
+        f"bulk copies; W 128 and 69, row sums wrapping negative, ND 4,096 and 4,000 "
+        f"at chunk 128 and 4,007 at chunk 1, grids auto and 132 blocks, a table off "
+        f"16 B alignment)")
     return 0
 
 
@@ -2072,7 +2214,7 @@ def rowgather_phase(dev, checker, idx):
     def ceiling(rb):
         return ", ".join(f"lanes {ln}: {rate('20 MB', rb, ln):.3e} (20 MB, L2) / "
                          f"{rate('4 GiB', rb, ln):.3e} (4 GiB, HBM)"
-                         for ln in rg.SWEEP_LANES)
+                         for ln in rg.SWEEP_LANES + (0,))
 
     summary = {}
     for name, rb in (("candidate_step", 208), ("dimer_step", 512)):
@@ -2096,16 +2238,22 @@ def rowgather_phase(dev, checker, idx):
                       == ("20 MB", rb, "chain", ln))
              for ln in rg.SWEEP_LANES}
         for rb in (208, 276)}
-    for rb in (208, 416, 512):
+    for rb in rg.BULK_ROW_BYTES:
         summary[f"sweep_{rb}B_rows_per_s"] = {
-            f"{t} lanes {ln}": rate(t, rb, ln) for t in ("20 MB", "4 GiB")
-            for ln in rg.SWEEP_LANES}
+            f"{t} lanes {ln}": rate(t, rb, ln) for t in rg.BULK_TABLES
+            for ln in rg.SWEEP_LANES + (0,)}
+        summary[f"sweep_{rb}B_chain_rows_per_s"] = {
+            f"{t} lanes {ln}": next(r["rows_per_s"] for r in res["sweep"]
+                                    if (r["table"], r["row_bytes"], r["kind"], r["lanes"])
+                                    == (t, rb, "chain", ln))
+            for t in rg.BULK_TABLES for ln in rg.SWEEP_LANES + (0,)}
     h = res["harness"]["sum"]
     row = dict(name="row_gather", route="cuda", source="genmap_tpu_torch/csrc/row_gather.cu",
                replaces=kernels.ROW_GATHER.replaces, launches=counts["row_gather"],
-               max_abs_err=err, ms=h["lanes"][32], plain_ms=h["plain_ms"],
+               max_abs_err=err, ms=h["lanes"][h["default_lanes"]], plain_ms=h["plain_ms"],
                bound_ms=h["bound_ms"], bound_by="bytes", library_ms=h["library_ms"])
-    summary["harness_ms"] = {k: v["lanes"][32] for k, v in res["harness"].items()}
+    summary["harness_ms"] = {k: v["lanes"][v["default_lanes"]]
+                             for k, v in res["harness"].items()}
     return row, summary
 
 

@@ -137,7 +137,7 @@ __device__ __forceinline__ void cs_reduce(CsBound& b) {
 }
 
 // occ / sentinel count before p from a bound's summed counts (the
-// arithmetic of gm_occ_sub).
+// arithmetic of ops/rank.py _occ_sub).
 __device__ __forceinline__ void cs_occ(const CsBound& b, uint32_t p, uint32_t occ[5],
                                        uint32_t* sent) {
   const uint32_t s = b.scnt + (b.sn & 0xFFFFu);

@@ -44,43 +44,6 @@ __device__ __forceinline__ uint32_t gm_bit_mask(int off, int k) {
   return (1u << nb) - 1u;
 }
 
-// Per-character occurrence counts before position p from the sub-row `sub`
-// covering p (ops/rank.py _occ_sub): occ[c] = #{i < p : BWT[i] == c} for
-// c = A, C, G, T (and N when has_n); *sent = sentinels before p.
-__device__ __forceinline__ void gm_occ_sub(const uint32_t* __restrict__ sub,
-                                           uint32_t p, int has_n,
-                                           uint32_t occ[5], uint32_t* sent) {
-  const int off = (int)(p & 511u);
-  uint32_t l0 = 0, l1 = 0, l2 = 0;
-  const int nw = (off + 15) >> 4;  // words holding fields < off
-  for (int k = 0; k < nw; ++k) {
-    const uint32_t w = sub[k];
-    const uint32_t hi = w >> 1;
-    const uint32_t m = gm_field_mask(off, k) & 0x55555555u;
-    l0 += __popc(~(w | hi) & m);  // code 0
-    l1 += __popc(~hi & m);        // code <= 1
-    l2 += __popc(~(hi & w) & m);  // code <= 2
-  }
-  const int nb = (off + 31) >> 5;
-  uint32_t s = sub[GM_S_SCNT];
-  for (int k = 0; k < nb; ++k) s += __popc(sub[GM_S_SBITS + k] & gm_bit_mask(off, k));
-  uint32_t nc = 0;
-  if (has_n) {
-    nc = sub[GM_S_NCNT];
-    for (int k = 0; k < nb; ++k) nc += __popc(sub[GM_S_NBITS + k] & gm_bit_mask(off, k));
-  }
-  const uint32_t le0 = sub[GM_S_LE + 0] + l0 - s - nc;
-  const uint32_t le1 = sub[GM_S_LE + 1] + l1 - s - nc;
-  const uint32_t le2 = sub[GM_S_LE + 2] + l2 - s - nc;
-  const uint32_t le3 = p - s - nc;
-  occ[0] = le0;
-  occ[1] = le1 - le0;
-  occ[2] = le2 - le1;
-  occ[3] = le3 - le2;
-  occ[4] = nc;
-  *sent = s;
-}
-
 // #SA rows before p whose suffix lies in the reverse-complement half
 // (ops/rank.py rc_strand_count).
 __device__ __forceinline__ uint32_t gm_rc_count(const uint32_t* __restrict__ strand,

@@ -19,8 +19,11 @@ version and the library call.  Then a sweep of the read rate over row
 width (64-1,024 B: the rank sub-row, paired-row and dimer-row widths and two
 ends), table size (16 MB, 20 MB and 256 MiB, which the 50 MB L2 holds or
 not, and 4 GiB, hg38-class mono rows in HBM), ids at random or sorted,
-independent (`sum`) or dependent (`chain`) reads, lanes per row, and blocks
-per SM: rows/s and GB/s of row bytes beside each call's byte bound.
+independent (`sum`) or dependent (`chain`) reads, lanes per row (and, at
+the rank rows' widths from the 20 MB, 256 MiB and 4 GiB tables, lanes 0: whole rows
+moved by the copy engine into shared memory, as the harness's per-row DMAs
+move them into VMEM), and blocks per SM: rows/s and GB/s of row bytes
+beside each call's byte bound.
 
 The device is cuda unless `--device cpu` is given; without a card a cuda
 run raises.  On the CPU the wrappers take the plain versions and times are
@@ -52,6 +55,11 @@ SWEEP_TABLES = (("16 MB", 16_000_000), ("20 MB", 20_000_000),
                 ("256 MiB", 256 << 20), ("4 GiB", 4 << 30))
 QUICK_TABLES = (("64 KiB", 64 << 10), ("1 MiB", 1 << 20))
 SWEEP_LANES = (1, 8, 32)
+# the bulk copies (lanes 0) are swept at the rank rows' widths (Dna4 and
+# Dna5 sub-rows, the Dna4 paired row, the dimer row) from an L2-sized and
+# two HBM-sized tables (in --quick: from both quick tables)
+BULK_ROW_BYTES = (208, 276, 416, 512)
+BULK_TABLES = ("20 MB", "256 MiB", "4 GiB")
 SWEEP_BLOCKS_PER_SM = (1, 2, 4, 8)  # 256-thread blocks; 8 fill an SM's 2,048 threads
 SWEEP_SEED = 2026
 
@@ -152,9 +160,10 @@ def _measure(dev, kind: str, table, ids, *, steps: int = 8, chunk: int = 1,
         if lib_val != want & 0xFFFFFFFF:
             raise AssertionError(f"row_gather {kind}: library {lib_val} != plain {want}")
     timer = _timer(dev)
+    default = kernels.row_gather_lanes(table, n_used)
     out = dict(kind=kind, NR=NR, row_bytes=4 * W, reads=n_reads, distinct=distinct,
-               checksum=want, lanes={})
-    for lanes in lanes_list:
+               checksum=want, lanes={}, default_lanes=default)
+    for lanes in sorted(set(lanes_list) | {default}):
         got = int(fn(table, ids, lanes=lanes, blocks=blocks, **extra))
         if got != want:
             raise AssertionError(f"row_gather {kind} (NR={NR} W={W} lanes={lanes} "
@@ -182,9 +191,9 @@ def run_harness(dev, quick: bool = False, say=print) -> dict:
          h["ND"] // h["CHUNK"] * h["CHUNK"]),
     ):
         r = _measure(dev, kind, table, ids, **kw)
-        ms = r["lanes"][32]
+        ms = r["lanes"][r["default_lanes"]]
         say(f"{name}: {ms:9.4f} ms  {rows / ms / 1e3:7.1f} Mrows/s  (checksum "
-            f"{r['checksum']})")
+            f"{r['checksum']}; lanes {r['default_lanes']}, the default)")
         say(f"  {kind}: NR={h['NR']} W={h['W']} ids={ids.shape[0]} ({r['reads']} row "
             f"reads of {r['distinct']} distinct rows), {_clock(dev)}: lanes "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["lanes"].items())
@@ -207,7 +216,19 @@ def sweep(dev, quick: bool = False, say=print) -> list[dict]:
            if dev.type == "cuda" else 1)
     rows = []
 
-    def report(label, r, pattern, blocks_label):
+    def lanes_for(label, table):
+        bulk = label in BULK_TABLES or quick
+        return SWEEP_LANES + ((0,) if bulk and 4 * table.shape[1] in BULK_ROW_BYTES else ())
+
+    def design(lanes, table, kind):
+        if lanes:
+            return f"lanes {lanes:2d}"
+        if kernels.row_gather_bulk(table, kind):
+            return "lanes  0 (bulk copies)"
+        return (f"lanes  0 (the copies do not apply: the word kernel, lanes "
+                f"{kernels.row_gather_word_lanes(table)})")
+
+    def report(label, r, pattern, blocks_label, table):
         for lanes, ms in r["lanes"].items():
             rate = r["reads"] / (ms * 1e-3)
             gbps = r["reads"] * r["row_bytes"] / (ms * 1e-3) / 1e9
@@ -215,10 +236,11 @@ def sweep(dev, quick: bool = False, say=print) -> list[dict]:
                        pattern=pattern, lanes=lanes, blocks=blocks_label, ms=ms,
                        rows_per_s=rate, gb_per_s=gbps, bound_ms=r["bound_ms"],
                        library_ms=r["library_ms"], reads=r["reads"],
-                       distinct=r["distinct"])
+                       distinct=r["distinct"],
+                       bulk=not lanes and kernels.row_gather_bulk(table, r["kind"]))
             rows.append(row)
             say(f"sweep: {r['kind']:5s} {pattern:6s} {label:>7s} table, "
-                f"{r['row_bytes']:4d} B rows (NR {r['NR']}), lanes {lanes:2d}, blocks "
+                f"{r['row_bytes']:4d} B rows (NR {r['NR']}), {design(lanes, table, r['kind'])}, blocks "
                 f"{blocks_label}: {r['reads']} reads of {r['distinct']} distinct rows "
                 f"in {ms:.4f} {_clock(dev)}: {rate:.3e} rows/s, {gbps:.1f} GB/s of row "
                 f"bytes; bound {r['bound_ms']:.5f} ms by bytes ({r['bytes']} B, "
@@ -231,13 +253,14 @@ def sweep(dev, quick: bool = False, say=print) -> list[dict]:
             table = flat[:NR * W].view(NR, W)
             ids = torch.randint(0, NR, (n_sum,), dtype=torch.int32, device=dev,
                                 generator=gen)
+            lanes = lanes_for(label, table)
             for pattern, x in (("random", ids), ("sorted", torch.sort(ids).values)):
-                report(label, _measure(dev, "sum", table, x, lanes_list=SWEEP_LANES),
-                       pattern, "auto")
+                report(label, _measure(dev, "sum", table, x, lanes_list=lanes),
+                       pattern, "auto", table)
             ids = torch.randint(0, NR, (n_chain,), dtype=torch.int32, device=dev,
                                 generator=gen)
             report(label, _measure(dev, "chain", table, ids, steps=steps,
-                                   lanes_list=SWEEP_LANES), "random", "auto")
+                                   lanes_list=lanes), "random", "auto", table)
     # rows in flight: the grid set to a few blocks per SM ("auto" above is
     # one id per row group capped at the blocks the card holds at once), at
     # 416 B rows (the port's Dna4 paired row), from an L2-sized and the
@@ -249,7 +272,7 @@ def sweep(dev, quick: bool = False, say=print) -> list[dict]:
         ids = torch.randint(0, NR, (n_sum,), dtype=torch.int32, device=dev, generator=gen)
         for bps in SWEEP_BLOCKS_PER_SM:
             report(label, _measure(dev, "sum", table, ids, lanes_list=SWEEP_LANES,
-                                   blocks=bps * sms), "random", f"{bps}/SM")
+                                   blocks=bps * sms), "random", f"{bps}/SM", table)
     return rows
 
 

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Nine kernels carry `map`, and a tenth measures the rank-row reads they are
-built on (sources in `csrc/`, compiled with nvcc for sm_90a into one shared
-library each, loaded with ctypes):
+Ten kernels carry `map`, and an eleventh measures the rank-row reads they
+are built on (sources in `csrc/`, compiled with nvcc for sm_90a into one
+shared library each, loaded with ctypes):
 
   extract_needles  needle windows from the packed text
   candidate_step   FMD extension of every search state by every character,
@@ -18,6 +18,8 @@ library each, loaded with ctypes):
                    characters per state and row read
   seed_lookup      the infix scan's starting pool from the seed tables
   gather_states    the split pipeline's rung gather of phase-A survivor rows
+  seed_build       the seed tables: the FMD interval of every ACGT string of
+                   length 0..t0 (once per index part, at upload)
   row_gather       the sum of random table rows, and dependent chains of
                    row reads (the Pallas row-DMA harness's function; run by
                    `experiments/row_gather.py`, not by `map`)
@@ -1066,9 +1068,57 @@ ROW_GATHER = Kernel(
     # dma_kernel (:81), and (entry _chain) its baseline xla_chain (:72)
     "row_gather", "row_gather.cu", "benchmarks/pallas_experiments.py:81", None,
     entries={"_sum": [_P, _I, _I, _P, _L, _I, _I, _P, _P],
-             "_chain": [_P, _I, _I, _P, _L, _I, _I, _I, _P, _P]},
+             "_chain": [_P, _I, _I, _P, _L, _I, _I, _I, _P, _P],
+             "_sum_bulk": [_P, _I, _I, _P, _L, _I, _P, _P],
+             "_chain_bulk": [_P, _I, _I, _P, _L, _I, _I, _P, _P],
+             "_bulk_ok": [_P, _I, _I]},
 )
-ROW_GATHER_LANES = (1, 4, 8, 32)
+# threads per row of the word kernels (1, 4, 8, 32), or 0: bulk copies of
+# whole rows into shared memory (csrc/row_gather.cu)
+ROW_GATHER_LANES = (0, 1, 4, 8, 32)
+# The default design, the same for the sum and the chain (the fastest that
+# `chip_ab.py --kernels` and the smoke's sweep measured on the H100, but for
+# the 512 B sum above L2, 2.9-3.5 % behind lanes 8; csrc/row_gather.cu's
+# header, PERF.md §6, PR 12):
+# fewer than ROW_GATHER_SMALL ids are launch-bound, and 32 lanes measured
+# fastest there (the harness's 4,096-id sum); tables above
+# ROW_GATHER_L2_BYTES (measured at 256 MiB and 4 GiB; at or below it, at
+# 16 and 20 MB) take the bulk copies where they apply, else the word kernel
+# of ROW_GATHER_WORD_LANES[above][the nearest measured row width].
+ROW_GATHER_WORD_LANES = {False: {208: 8, 416: 4, 512: 8},
+                         True: {208: 8, 416: 32, 512: 8}}
+ROW_GATHER_L2_BYTES = 32 << 20
+ROW_GATHER_SMALL = 1 << 14
+
+
+def row_gather_bulk(table, kind: str) -> bool:
+    """Whether the bulk copies run for `table` in `row_gather_sum` (kind
+    "sum") or `row_gather_chain` ("chain"), as the kernel's library decides
+    it (entry _bulk_ok: rows of whole 16-byte units at a 16-byte aligned
+    base whose stages or slots fit the shared memory).  False on the CPU,
+    where no kernel runs."""
+    if not table.is_cuda:
+        return False
+    return bool(ROW_GATHER.fn("_bulk_ok")(table.data_ptr(), table.shape[1],
+                                          int(kind == "chain")))
+
+
+def row_gather_word_lanes(table) -> int:
+    """The word kernel's lanes for `table` (ROW_GATHER_WORD_LANES)."""
+    rule = ROW_GATHER_WORD_LANES[table.numel() * 4 > ROW_GATHER_L2_BYTES]
+    return rule[min(rule, key=lambda w: (abs(w - 4 * table.shape[1]), w))]
+
+
+def row_gather_lanes(table, n: int) -> int:
+    """The lanes that `row_gather_sum` and `row_gather_chain` take by
+    default for n ids of `table`: 32 below ROW_GATHER_SMALL ids, 0 (the
+    bulk copies where they apply) above ROW_GATHER_L2_BYTES, else
+    `row_gather_word_lanes`."""
+    if n < ROW_GATHER_SMALL:
+        return 32
+    if table.numel() * 4 > ROW_GATHER_L2_BYTES:
+        return 0
+    return row_gather_word_lanes(table)
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -1078,7 +1128,7 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return (x - (x >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
 
 
-def row_gather_sum_plain(table, idx, chunk: int = 128, lanes: int = 32,
+def row_gather_sum_plain(table, idx, chunk: int = 128, lanes: int | None = None,
                          blocks: int = 0):
     """Plain PyTorch version of `row_gather_sum` (`lanes` and `blocks` only
     shape the kernel's launch)."""
@@ -1098,36 +1148,41 @@ def row_gather_chain_steps(table, idx, steps: int):
     return ids
 
 
-def row_gather_chain_plain(table, idx, steps: int = 8, lanes: int = 32,
+def row_gather_chain_plain(table, idx, steps: int = 8, lanes: int | None = None,
                            blocks: int = 0):
     """Plain PyTorch version of `row_gather_chain`."""
     return _wrap_i32(row_gather_chain_steps(table, idx, steps)[-1].sum(dtype=torch.int64))
 
 
 def _row_gather_check(table, idx, lanes: int, blocks: int) -> None:
-    if lanes not in ROW_GATHER_LANES:
-        raise ValueError(f"row_gather: lanes must be one of {ROW_GATHER_LANES}, got {lanes}")
     if table.dim() != 2 or idx.dim() != 1 or blocks < 0:
         raise ValueError(f"row_gather: bad geometry table {tuple(table.shape)} "
                          f"idx {tuple(idx.shape)} blocks {blocks}")
+    if lanes not in ROW_GATHER_LANES:
+        raise ValueError(f"row_gather: lanes must be one of {ROW_GATHER_LANES}, got {lanes}")
     if not 0 < table.shape[0] < 2**31 or table.shape[1] <= 0:
         raise ValueError(f"row_gather: table of {tuple(table.shape)} rows")
     _check(table, "table", torch.int32)
     _check(idx, "idx", torch.int32, device=table.device)
 
 
-def row_gather_sum(table, idx, chunk: int = 128, lanes: int = 32, blocks: int = 0):
+def row_gather_sum(table, idx, chunk: int = 128, lanes: int | None = None,
+                   blocks: int = 0):
     """The wrapped int32 sum of every element of rows idx[:n_used] of
     `table`, n_used = (ND // chunk) * chunk (the harness's fori_loop over
     whole chunks drops the tail ids).
 
     table [NR, W] int32; idx [ND] int32 row ids in [0, NR).  `lanes` (1, 4,
-    8 or 32) threads read one row; `blocks` sets the grid and so the rows
-    in flight (0: one id per row group, capped at the blocks the card holds
-    at once).  Returns a 0-d int32 tensor on the
-    table's device, with no host sync."""
+    8 or 32) threads read one row, or (0) the copy engine moves whole rows
+    into shared memory (where `row_gather_bulk` allows it; else the word
+    kernel of `row_gather_word_lanes` runs); None: `row_gather_lanes`'s
+    pick.  `blocks` sets the grid and so the rows in flight (0: one id per
+    row group, capped at the blocks the card holds at once).  Returns a 0-d
+    int32 tensor on the table's device, with no host sync."""
     if chunk <= 0:
         raise ValueError(f"row_gather_sum: chunk must be positive, got {chunk}")
+    if lanes is None and table.dim() == 2 and idx.dim() == 1:
+        lanes = row_gather_lanes(table, idx.shape[0] // chunk * chunk)
     _row_gather_check(table, idx, lanes, blocks)
     if not table.is_cuda:
         return row_gather_sum_plain(table, idx, chunk)
@@ -1136,18 +1191,27 @@ def row_gather_sum(table, idx, chunk: int = 128, lanes: int = 32, blocks: int = 
     if n_used == 0:
         return out
     NR, W = table.shape
-    ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), n_used, lanes,
-                      blocks, out.data_ptr(), _stream(table), entry="_sum")
+    if lanes == 0 and not row_gather_bulk(table, "sum"):
+        lanes = row_gather_word_lanes(table)
+    if lanes == 0:
+        ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), n_used, blocks,
+                          out.data_ptr(), _stream(table), entry="_sum_bulk")
+    else:
+        ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), n_used, lanes,
+                          blocks, out.data_ptr(), _stream(table), entry="_sum")
     return out
 
 
-def row_gather_chain(table, idx, steps: int = 8, lanes: int = 32, blocks: int = 0):
+def row_gather_chain(table, idx, steps: int = 8, lanes: int | None = None,
+                     blocks: int = 0):
     """`steps` dependent row reads from each id: c <- (the int32-wrapped
     sum of row c) floor-mod NR; returns the wrapped int32 sum of the last
     ids (a 0-d int32 tensor, no host sync).  Arguments as in
     `row_gather_sum`; the ids must lie in [0, NR)."""
     if steps < 0:
         raise ValueError(f"row_gather_chain: steps must be >= 0, got {steps}")
+    if lanes is None and table.dim() == 2 and idx.dim() == 1:
+        lanes = row_gather_lanes(table, idx.shape[0])
     _row_gather_check(table, idx, lanes, blocks)
     if not table.is_cuda:
         return row_gather_chain_plain(table, idx, steps)
@@ -1156,11 +1220,102 @@ def row_gather_chain(table, idx, steps: int = 8, lanes: int = 32, blocks: int = 
     if N == 0:
         return out
     NR, W = table.shape
-    ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), N, steps, lanes,
-                      blocks, out.data_ptr(), _stream(table), entry="_chain")
+    if lanes == 0 and not row_gather_bulk(table, "chain"):
+        lanes = row_gather_word_lanes(table)
+    if lanes == 0:
+        ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), N, steps, blocks,
+                          out.data_ptr(), _stream(table), entry="_chain_bulk")
+    else:
+        ROW_GATHER.launch(table.data_ptr(), NR, W, idx.data_ptr(), N, steps, lanes,
+                          blocks, out.data_ptr(), _stream(table), entry="_chain")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 11. seed_build
+# ---------------------------------------------------------------------------
+
+SEED_BUILD = Kernel(
+    "seed_build", "seed_build.cu", "genmap_tpu/ops/rank.py:345", None,
+    entries={"_shallow": [_P, _I, _I, _I, _P, _U, _I, _P, _P, _P],
+             "_level": [_P, _I, _I, _I, _P, _I, _P, _P, _P],
+             "_depth": []},
+)
+SEED_T_MAX = 15  # the deepest table the kernels index (csrc/seed_build.cu)
+
+
+def seed_build_plain(index, t0: int):
+    """Plain PyTorch version of `seed_build`: level by level, the exact
+    candidate step of every string of the level (`candidate_step_plain`,
+    never the CUDA kernel), in chunks that bound its memory."""
+    dev = index.device
+    chunk = (1 << 22) if dev.type == "cuda" else (1 << 15)
+    zeros = torch.zeros(1, dtype=torch.int32, device=dev)
+    ones = torch.ones(1, dtype=torch.uint8, device=dev)
+    big = torch.full((1,), 1 << 20, dtype=torch.int32, device=dev)
+    mlo = torch.zeros(1, dtype=torch.int32, device=dev)
+    size = rank.as_i32(torch.full((1,), index.n_total, dtype=torch.int64, device=dev))
+    mlo_parts, size_parts = [mlo], [size]
+    for _t in range(t0):
+        nm, ns = [], []
+        for s in range(0, mlo.shape[0], chunk):
+            m = mlo[s : s + chunk]
+            N = m.shape[0]
+            st = torch.stack([m, torch.zeros_like(m), size[s : s + chunk],
+                              torch.zeros_like(m)])
+            out, _v, _far = candidate_step_plain(
+                index, st, torch.ones(N, dtype=torch.uint8, device=dev), per_block=N,
+                inner=N, nch=torch.zeros((1, 1), dtype=torch.uint8, device=dev),
+                right=zeros.to(torch.uint8), act=ones, u=big, lreq=zeros, exact=True,
+            )
+            nm.append(out[0, :, :4])
+            ns.append(out[2, :, :4])
+        # prepending char c: code(c.w) = c*4^t + code(w) -> c-major order
+        mlo = torch.cat(nm).T.reshape(-1).contiguous()
+        size = torch.cat(ns).T.reshape(-1).contiguous()
+        mlo_parts.append(mlo)
+        size_parts.append(size)
+    return torch.cat(mlo_parts), torch.cat(size_parts)
+
+
+def seed_build_depth() -> int:
+    """The deepest level that `seed_build`'s first launch fills."""
+    return SEED_BUILD.fn("_depth")()
+
+
+def seed_build(index, t0: int):
+    """The seed tables of an index part: the FMD interval (seed_mlo,
+    seed_size) of every ACGT string of length 0..t0, levels back to back
+    (`rank.seed_level_offset`), entry c * 4^t + code(w) of level t + 1 the
+    string c.w; [(4^(t0+1) - 1) / 3] int32 each, holding uint32.  Level 0
+    is (0, n_total); empty intervals keep the mlo that the extension gives.
+
+    On a CUDA index: one launch for levels 0..min(t0, seed_build_depth())
+    and one per deeper level, with no host sync and no PyTorch op between
+    them; the tables are allocated once and written in place."""
+    if not index.fwd_blocks.is_cuda:
+        return seed_build_plain(index, t0)
+    dev = index.device
+    if not 0 <= t0 <= SEED_T_MAX:
+        raise ValueError(f"seed_build: t0={t0} outside 0..{SEED_T_MAX}")
+    _check(index.fwd_blocks, "fwd_blocks", torch.int32, device=dev)
+    _check(index.C, "C", torch.int32, device=dev)
+    if index.C.numel() < 4:
+        raise ValueError("seed_build: C needs its A, C, G, T entries")
+    total = rank.seed_level_offset(t0 + 1)
+    mlo = torch.empty(total, dtype=torch.int32, device=dev)
+    size = torch.empty(total, dtype=torch.int32, device=dev)
+    nrows, row_w = index.fwd_blocks.shape
+    rows = (index.fwd_blocks.data_ptr(), row_w, nrows, int(index.has_n), index.C.data_ptr())
+    out, stream = (mlo.data_ptr(), size.data_ptr()), _stream(mlo)
+    L = min(t0, seed_build_depth())
+    SEED_BUILD.launch(*rows, int(index.n_total) & rank.MASK32, L, *out, stream,
+                      entry="_shallow")
+    for t in range(L, t0):
+        SEED_BUILD.launch(*rows, t, *out, stream, entry="_level")
+    return mlo, size
 
 
 KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
                                COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP,
-                               SEED_LOOKUP, GATHER_STATES, ROW_GATHER)}
+                               SEED_LOOKUP, GATHER_STATES, ROW_GATHER, SEED_BUILD)}

@@ -521,46 +521,15 @@ def with_seed_tables(index: DeviceIndex, t0: int | None = None) -> DeviceIndex:
     steps of every block's infix search descend one exact path — a pure
     function of the needle window — that one table lookup replaces.  Only
     (lo, size) are stored: the companion offset of w is seed_mlo[code(rc(w))]
-    by strand symmetry.  Built level by level with the exact candidate step
-    (`kernels.candidate_step`), in chunks that bound the plain path's memory.
-    `t0` overrides the depth (the parts of a part mesh share the smallest).
+    by strand symmetry.  Built by `kernels.seed_build` (on the card its
+    kernel; on the CPU the level loop of the exact candidate step).  `t0`
+    overrides the depth (the parts of a part mesh share the smallest).
     """
     from genmap_tpu_torch import kernels
 
-    n = index.n_total
-    t0 = seed_depth(n) if t0 is None else t0
-    dev = index.device
-    chunk = (1 << 22) if dev.type == "cuda" else (1 << 15)
-    A = index.nchars
-    zeros = torch.zeros(A, dtype=torch.int32, device=dev)
-    big = torch.full((1,), 1 << 20, dtype=torch.int32, device=dev)
-    mlo = torch.zeros(1, dtype=torch.int32, device=dev)
-    size = torch.full((1,), n, dtype=torch.int64, device=dev).to(torch.int32)
-    mlo_parts, size_parts = [mlo], [size]
-    for _t in range(t0):
-        nm, ns = [], []
-        for s in range(0, mlo.shape[0], chunk):
-            m = mlo[s : s + chunk]
-            N = m.shape[0]
-            st = torch.stack([m, torch.zeros_like(m), size[s : s + chunk],
-                              torch.zeros_like(m)])
-            out, _v, _far = kernels.candidate_step(
-                index, st, torch.ones(N, dtype=torch.uint8, device=dev),
-                per_block=N, inner=N, nch=torch.zeros((1, 1), dtype=torch.uint8, device=dev),
-                right=zeros[:1].to(torch.uint8), act=torch.ones(1, dtype=torch.uint8, device=dev),
-                u=big, lreq=zeros[:1], exact=True,
-            )
-            nm.append(out[0, :, :4])
-            ns.append(out[2, :, :4])
-        # prepending char c: code(c.w) = c*4^t + code(w) -> c-major order
-        mlo = torch.cat(nm).T.reshape(-1).contiguous()
-        size = torch.cat(ns).T.reshape(-1).contiguous()
-        mlo_parts.append(mlo)
-        size_parts.append(size)
-    return replace(
-        index, seed_mlo=torch.cat(mlo_parts), seed_size=torch.cat(size_parts),
-        seed_t0=t0,
-    )
+    t0 = seed_depth(index.n_total) if t0 is None else t0
+    seed_mlo, seed_size = kernels.seed_build(index, t0)
+    return replace(index, seed_mlo=seed_mlo, seed_size=seed_size, seed_t0=t0)
 
 
 # ---------------------------------------------------------------------------

@@ -37,10 +37,11 @@ _ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
 @contextlib.contextmanager
-def poisoned():
-    """kernels.candidate_step with every slot of `out` outside the contract
-    overwritten by POISON; yields the calls seen as (R, passthrough)."""
-    orig = kernels.candidate_step
+def poisoned(name="candidate_step"):
+    """kernels.candidate_step (or `name`, another function of the step's
+    signature) with every slot of `out` outside the contract overwritten by
+    POISON; yields the calls seen as (R, passthrough)."""
+    orig = getattr(kernels, name)
     seen = []
 
     def wrapper(index, st, valid, *, per_block, inner, act, **kw):
@@ -53,11 +54,11 @@ def poisoned():
         seen.append((st.shape[0], not bool(act.all())))
         return out, valid2, far
 
-    kernels.candidate_step = wrapper
+    setattr(kernels, name, wrapper)
     try:
         yield seen
     finally:
-        kernels.candidate_step = orig
+        setattr(kernels, name, orig)
 
 
 def test_poison_covers_the_undefined_slots():
@@ -96,13 +97,15 @@ def _seed_tables(data, t0=None):
 
 @pytest.mark.parametrize("alpha", [4, 5])
 def test_seed_build_reads_only_defined_slots(alpha):
-    """The seed build passes every state valid and active, so every slot it
-    reads is defined: this checks that premise (every call seen is R = 4
-    with no passthrough group) and that the poisoned build equals the
+    """The plain seed build (`kernels.seed_build_plain`, the reference the
+    seed_build kernel is held against; the CPU's build) steps with
+    `candidate_step_plain` and passes every state valid and active, so every
+    slot it reads is defined: this checks that premise (every call seen is
+    R = 4 with no passthrough group) and that the poisoned build equals the
     unwrapped one and JAX's.  No slot is poisoned here; the mutations of
     the next test show that a build reading undefined slots would fail."""
     data, jdata = _seed_data(alpha)
-    with poisoned() as seen:
+    with poisoned("candidate_step_plain") as seen:
         got = _seed_tables(data)
     assert seen and all(r == 4 and not p for r, p in seen)
     again = _seed_tables(data)
@@ -124,7 +127,7 @@ def test_poison_reaches_a_seed_build_that_reads_undefined_slots(alpha, mutation)
 
     @contextlib.contextmanager
     def mutated():
-        orig = kernels.candidate_step
+        orig = kernels.candidate_step_plain
 
         def wrapper(index, st, valid, *, act, **kw):
             if mutation == "invalid":
@@ -134,13 +137,13 @@ def test_poison_reaches_a_seed_build_that_reads_undefined_slots(alpha, mutation)
                 act = torch.zeros_like(act)
             return orig(index, st, valid, act=act, **kw)
 
-        kernels.candidate_step = wrapper
+        kernels.candidate_step_plain = wrapper
         try:
             yield
         finally:
-            kernels.candidate_step = orig
+            kernels.candidate_step_plain = orig
 
-    with poisoned(), mutated():
+    with poisoned("candidate_step_plain"), mutated():
         got = _seed_tables(data, t0=1)
     with mutated():
         want = _seed_tables(data, t0=1)

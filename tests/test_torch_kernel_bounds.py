@@ -5,8 +5,9 @@ what the kernel's plain version does on the CPU.
 (with the samples' positions set to 0, locate_plain's i2 is each row's
 step count); `kernel_work` of `gather_states`, `seed_lookup` and
 `probe_mass` counts the bytes that their plain versions read (the
-validity of every slot, the operands of valid slots only) and write.
-Small indexes, ~10 s.
+validity of every slot, the operands of valid slots only) and write, and
+of `seed_build` the plain build's tables and the rank sub-rows of the
+states it steps.  Small indexes, ~10 s.
 """
 
 import dataclasses
@@ -19,6 +20,7 @@ import torch
 
 from genmap_tpu_torch import kernels
 from genmap_tpu_torch.index.build import build_index
+from genmap_tpu_torch.index.fmindex import sub_width
 from genmap_tpu_torch.io.fasta import FastaFile
 from genmap_tpu_torch.ops import rank
 
@@ -195,3 +197,95 @@ def test_probe_mass_reduced_work_counts_plain_bytes(with_mass):
     nbytes, _nops, shape, _reads = cs.kernel_work("probe_mass", args)
     assert nbytes == _nbytes(args["acc"]) + _nbytes(args["thr"]) + _nbytes(out)
     assert shape == "B=300 P=3 (reduced)"
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("t0", [0, 1, 4, 7])
+def test_seed_build_work_counts_plain_bytes(alpha, t0):
+    """seed_build's bytes: the plain build's outputs written once, and once
+    each distinct rank sub-row that a bound of a state it steps (its
+    parents, levels 0..t0-1, as `candidate_step_plain` receives them) falls
+    in."""
+    cs = _smoke()
+    ix = _index(alpha, 10)
+    orig, stepped = kernels.candidate_step_plain, []
+
+    def spy(index, st, valid, **kw):
+        stepped.append(st.clone())
+        return orig(index, st, valid, **kw)
+
+    kernels.candidate_step_plain = spy
+    try:
+        out = kernels.seed_build_plain(ix, t0)
+    finally:
+        kernels.candidate_step_plain = orig
+    none = torch.zeros(0, dtype=torch.int64)
+    flo = torch.cat([none] + [rank.u32(st[0]) for st in stepped])
+    size = torch.cat([none] + [rank.u32(st[2]) for st in stepped])
+    assert flo.numel() == rank.seed_level_offset(t0)
+    rows = torch.unique(torch.cat([flo, (flo + size) & rank.MASK32]).long() >> 9)
+    subw = sub_width(ix.has_n)
+    nbytes, nops, shape, reads = cs.kernel_work("seed_build", dict(index=ix, t0=t0))
+    assert nbytes == _nbytes(out) + rows.numel() * subw * 4
+    assert reads == 0 and nops >= 8 * (out[0].numel() - 1)
+    assert f"t0={t0} on the {ix.n_total}-symbol A={alpha} index" in shape
+    assert cs.variant("seed_build", dict(index=ix, t0=t0)) == f"A={alpha} t0={t0}"
+
+
+def _replay_sb_children(rows, subw, last_sub, has_n, lo, sz):
+    """The operations of csrc/seed_build.cu's sb_children on one parent,
+    loop by loop: sb_occ at lo, and sb_occ_add (hi in lo's sub-row) or
+    sb_occ at hi, with ~10 ops a code word, 4 a bit word, 12 for sb_occ's
+    start counts and 8 for sb_occ_add's sums."""
+
+    def sb_occ(p):
+        q, off = p >> 9, p & 511
+        last = q == last_sub
+        up = off >= 256 and not last
+        kb = off >> 4
+        words = 1 + len(range(kb + 1, 32) if up else range(0, kb))
+        ops = 10 * words + 12
+        for cnt in [35] + ([52] if has_n else []):
+            if last or rows[q][cnt] != rows[q][subw + cnt]:
+                ops += 4 * len(range(off >> 5, 16) if up else range(0, (off + 31) >> 5))
+        return ops
+
+    hi = (lo + sz) & 0xFFFFFFFF
+    ops = sb_occ(lo)
+    if hi >> 9 == lo >> 9 and hi >= lo:
+        if sz:
+            a, b = lo & 511, hi & 511
+            ops += 10 * len(range(a >> 4, (b + 15) >> 4)) + 8
+            ops += 4 * (1 + has_n) * len(range(a >> 5, (b + 31) >> 5))
+        return ops
+    return ops + sb_occ(hi)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("t0", [1, 4, 7])
+def test_seed_build_ops_replay_sb_occ(alpha, t0):
+    """seed_build's operations: per parent what sb_children counts (the
+    nearer half of each bound's sub-row, the sentinel and N bit words only
+    where present, the words between lo and hi where they share a
+    sub-row), replayed loop by loop, plus 8 per child written."""
+    cs = _smoke()
+    ix = _index(alpha, 10)
+    mlo, size = kernels.seed_build_plain(ix, t0)
+    npar = rank.seed_level_offset(t0)
+    lo, sz = rank.u32(mlo[:npar]), rank.u32(size[:npar])
+    rows = rank.u32(ix.fwd_blocks).tolist()
+    subw, last_sub = sub_width(ix.has_n), ix.fwd_blocks.shape[0] - 1
+    want = [_replay_sb_children(rows, subw, last_sub, int(ix.has_n), a, b)
+            for a, b in zip(lo.tolist(), sz.tolist())]
+    got = cs.seed_build_parent_ops(ix, lo, sz)
+    assert got.tolist() == want
+    _nbytes_, nops, _shape, _reads = cs.kernel_work("seed_build", dict(index=ix, t0=t0))
+    assert nops == sum(want) + 8 * (mlo.numel() - 1)
+    # the cases the replay must cover: upper halves, the last sub-row, hi
+    # in lo's sub-row (empty or not) and in another
+    off, q = lo & 511, lo >> 9
+    hi = (lo + sz) & rank.MASK32
+    if t0 == 7:
+        assert bool((off >= 256).any()) and bool((q == last_sub).any())
+        assert bool(((hi >> 9) == q).any()) and bool(((hi >> 9) != q).any())
+        assert bool((sz == 0).any())

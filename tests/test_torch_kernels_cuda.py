@@ -889,3 +889,103 @@ def test_row_gather_entry_point_quick(cuda):
     res = rg.run(cuda, quick=True, say=lambda _line: None)
     assert kernels.launch_counts()["row_gather"] > 0
     assert set(res["harness"]) == {"sum", "chain"} and res["sweep"]
+
+
+@pytest.mark.parametrize("W", [4, 52, 104, 128, 256, 1024])
+def test_row_gather_bulk_shapes(cuda, W):
+    """lanes 0 (the bulk copies) where rows are whole 16-byte units: a
+    partial last stage (chunk 1, odd ND), fewer ids than a stage, grids of
+    1 and 3 blocks; rows of 1,024 and 4,096 B (the sum's stages hold 16 and
+    4 of them; the chain's 256 slots do not fit there, and it takes the
+    word kernel), a table off 16-byte alignment (the word kernel).  The
+    bulk entries refuse the tables that `row_gather_bulk` rules out."""
+    from genmap_tpu_torch.experiments.row_gather import negative_wrap_table
+
+    NR = 601
+    rng = np.random.default_rng(W + 1)
+    t = torch.from_numpy(negative_wrap_table(NR, W, seed=W + 1))
+    tc = t.to(cuda)
+    shifted = torch.cat([tc.new_zeros(1), tc.flatten()])[1:].view(NR, W)
+    assert kernels.row_gather_bulk(tc, "sum") and not kernels.row_gather_bulk(shifted, "sum")
+    assert kernels.row_gather_bulk(tc, "chain") == (W <= 128)
+    assert not kernels.row_gather_bulk(shifted, "chain")
+    out = torch.zeros((), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(128, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="_sum_bulk"):
+        kernels.ROW_GATHER.launch(shifted.data_ptr(), NR, W, ids.data_ptr(), 128, 0,
+                                  out.data_ptr(), None, entry="_sum_bulk")
+    with pytest.raises(RuntimeError, match="_chain_bulk"):
+        kernels.ROW_GATHER.launch(shifted.data_ptr(), NR, W, ids.data_ptr(), 128, 8, 0,
+                                  out.data_ptr(), None, entry="_chain_bulk")
+    for ND, chunk in ((4007, 1), (31, 1), (4096, 128), (33, 1)):
+        idx = torch.from_numpy(rng.integers(0, NR, ND).astype(np.int32))
+        want = kernels.row_gather_sum_plain(t, idx, chunk)
+        for tt in (tc, shifted):
+            for blocks in (0, 1, 3):
+                got = kernels.row_gather_sum(tt, idx.to(cuda), chunk, lanes=0, blocks=blocks)
+                torch.cuda.synchronize()
+                _eq(got, want)
+    for n in (5000, 7):
+        idx = torch.from_numpy(rng.integers(0, NR, n).astype(np.int32))
+        want = kernels.row_gather_chain_plain(t, idx, steps=8)
+        for tt in (tc, shifted):
+            for blocks in (0, 1):
+                got = kernels.row_gather_chain(tt, idx.to(cuda), steps=8, lanes=0,
+                                               blocks=blocks)
+                torch.cuda.synchronize()
+                _eq(got, want)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+def test_seed_build(cuda, alpha):
+    """seed_build on the card against seed_build_plain (on the card and on
+    the CPU) at every t0 from 0 to one past the index's depth: tables
+    byte-equal; the build launches seed_build only (no candidate_step),
+    once for the shallow levels and once per deeper level; with_seed_tables
+    attaches the same tables at a t0 override (a part mesh's shared
+    depth)."""
+    _data_, gi, ci = _indexes(alpha, cuda)
+    depth = rank.seed_depth(gi.n_total)
+    assert kernels.seed_build_depth() < depth + 1  # a level launch runs below
+    for t0 in range(depth + 2):
+        kernels.reset_launches()
+        got = kernels.seed_build(gi, t0)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = 1 + max(0, t0 - kernels.seed_build_depth())  # shallow, then a level each
+        assert counts == {"seed_build": want}, (t0, counts)
+        for g, w, wc in zip(got, kernels.seed_build_plain(gi, t0),
+                            kernels.seed_build_plain(ci, t0)):
+            assert g.is_cuda and g.dtype == torch.int32
+            _eq(g, w)
+            _eq(g, wc)
+    kernels.reset_launches()
+    over = rank.with_seed_tables(gi, depth - 2)
+    torch.cuda.synchronize()
+    assert over.seed_t0 == depth - 2 and kernels.launch_counts()["candidate_step"] == 0
+    ref = rank.with_seed_tables(ci, depth - 2)
+    _eq(over.seed_mlo, ref.seed_mlo)
+    _eq(over.seed_size, ref.seed_size)
+
+
+@pytest.mark.parametrize("alpha", [4, 5])
+@pytest.mark.parametrize("n", [40, 255, 256, 511])
+def test_seed_build_small_parts(cuda, alpha, n):
+    """Parts of 82, 512, 514 and 1,024 symbols (hi = n_total at a sub-row's
+    start or in the last sub-row; intervals that empty out before t0), to
+    t0 = 10 (level launches past the shallow one)."""
+    rng = np.random.default_rng(n + alpha)
+    seq = rng.integers(0, 4, size=n, dtype=np.uint8)
+    if alpha == 5:
+        seq[rng.integers(0, n, max(1, n // 50))] = 4
+    ff = FastaFile(name="g.fa")
+    ff.seqs, ff.ids = [seq], ["s"]
+    data = build_index([ff], sampling=4)
+    part = data.parts[0]
+    gi = rank.DeviceIndex.from_part(data, part, light=True, device=cuda, seed_t0=0)
+    ci = rank.DeviceIndex.from_part(data, part, light=True, device="cpu", seed_t0=0)
+    for t0 in [*range(rank.seed_depth(gi.n_total) + 3), 9, 10]:  # 9, 10: level launches
+        got = kernels.seed_build(gi, t0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, kernels.seed_build_plain(ci if t0 < 8 else gi, t0)):
+            _eq(g, w)

@@ -163,3 +163,40 @@ def test_entry_point_runs_on_the_cpu(capsys):
         assert any(f" {rb:4d} B rows" in line for line in sweep)
     assert any("blocks 8/SM" in line for line in sweep)
     assert kernels.launch_counts()["row_gather"] == 0  # CPU: the plain versions
+
+
+def _view(row_bytes, table_bytes, misaligned=False):
+    """A [NR, W] int32 table of table_bytes that allocates one row (a
+    stride-0 view), 4 B off 16-byte alignment when asked."""
+    W = row_bytes // 4
+    base = torch.zeros(W + 4, dtype=torch.int32)[1 if misaligned else 0:][:W]
+    return base.as_strided((table_bytes // row_bytes, W), (0, 1))
+
+
+@pytest.mark.parametrize("row_bytes,table_bytes,n,misaligned,want,word", [
+    (512, 16_000_000, 4096, False, 32, 8),       # the harness's sum
+    (208, 20_000_000, 1 << 20, False, 8, 8),     # L2
+    (416, 20_000_000, 1 << 20, False, 4, 4),
+    (208, 4 << 30, 1 << 20, False, 0, 8),        # HBM: the bulk copies
+    (276, 4 << 30, 1 << 20, False, 0, 8),        # Dna5 rows: the word kernel
+    (512, 4 << 30, 1 << 20, False, 0, 8),
+    (208, 4 << 30, 1 << 20, True, 0, 8),         # a table off alignment
+    (512, 16_000_000, 1 << 17, False, 8, 8),     # the harness's chain
+    (416, 256 << 20, 1 << 17, False, 0, 32),     # the sweep's 256 MiB table
+    (416, (32 << 20) + 416, 1 << 17, True, 0, 32),  # just above the L2 threshold
+    (640, 32 << 20, 1 << 17, False, 8, 8),       # at it; nearest width 512
+    (1024, 4 << 30, 1 << 17, False, 0, 8),
+])
+def test_default_lanes_follow_the_measured_rule(row_bytes, table_bytes, n, misaligned,
+                                                want, word):
+    """`lanes=None` takes the measured rule, the same for the sum and the
+    chain: 32 lanes below ROW_GATHER_SMALL ids; above ROW_GATHER_L2_BYTES
+    the bulk copies (lanes 0), and where those do not apply (no table on
+    the CPU, where no kernel runs) the word kernel of the nearest measured
+    row width for that residency."""
+    table = _view(row_bytes, table_bytes, misaligned)
+    assert (table.data_ptr() % 16 != 0) == misaligned
+    assert kernels.row_gather_lanes(table, n) == want
+    assert kernels.row_gather_word_lanes(table) == word
+    assert not kernels.row_gather_bulk(table, "sum")
+    assert not kernels.row_gather_bulk(table, "chain")
