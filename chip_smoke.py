@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of genmap_tpu_torch on one NVIDIA GPU: kernels, main path,
 dimer tiers, dedup, CSV locations and exclude-pseudo, multi-part indexes,
-meshes, the row-gather sweep, cross-checks.
+cross-checks against an independent counter and the brute-force oracle,
+meshes, the row-gather sweep.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card; it needs
 nvcc (CUDA_HOME or PATH) and g++, and no network.  It imports nothing of JAX
-or of the JAX package.  Phases (any failure exits non-zero):
+or of the JAX package.  Phases (any failure exits non-zero), run in this
+order except mesh1, which runs right after main; the crosscheck phase's
+counters start after mesh1 and run beside the check phase:
 
   1. build   every CUDA kernel of the port from csrc/ (one nvcc per source,
              in parallel)
@@ -76,7 +79,30 @@ or of the JAX package.  Phases (any failure exits non-zero):
              included), frequencies equal; `map -d` of a >= 10,000-k-mer
              selection on the split index on the card and on the CPU, and on
              the whole index on the card: all output files byte-equal
-  9. mesh1   a NCCL world of one rank (this process, cuda:0): the main
+  9. crosscheck  the independent C++ counter (tests/crosscheck/crosscheck.cpp,
+             no code or algorithm shared with the port) against the card,
+             through `genmap_tpu_torch.scripts.realistic_crosscheck`'s
+             functions: a 10 Mbp genome-like chrR (seed 7); the counter's
+             (20,1) and (30,2) runs start after mesh1 (no timed or profiled
+             map, no kernel timing beside them) and are joined here;
+             `index`, then `map -K 20 -E 1 -fl -bg` and `-K 30 -E 2` on the
+             card (the seed-table build and the first batch of each program
+             held against the plain versions, routes logged): both
+             bedgraphs byte-equal to the counter's
+ 10. oracle  on the card against `genmap_tpu_torch.engine.oracle`, every
+             kernel call held against its plain version: the JAX package's
+             differential sweep (tests/test_engine_differential.py: Dna4 and
+             Dna5, three 120 bp sequences, e = 0 at K 1-8, e = 1 at K 2, 4,
+             6, e = 2 at K 4, 6, 8, e = 3 at K 5, 8, e = 4 at K 6, 8, every
+             legal overlap: 63 maps per alphabet), its large-K cases
+             (tests/test_large_k.py: (20,1), (24,2), (30,2) at half overlap,
+             (16,3), (12,0), with and without the reverse complement), uint8
+             saturation, sequences shorter than K, a homopolymer genome
+             (sampled positions) and the repeat-rich genome's sampled check
+             at (20,1) and (36,2) (tests/test_stress_repeats.py; the tier
+             escalation must run; there the seed-table build and the first
+             batch of each program are checked)
+ 11. mesh1   a NCCL world of one rank (this process, cuda:0): the main
              genome mapped through `map_main(mesh=...)` on data_mesh(1) and
              on part_data_mesh(1, 1) at (100,2) and (24,1) (the fused
              ladder: the split gate is off under a mesh), each counted
@@ -85,7 +111,7 @@ or of the JAX package.  Phases (any failure exits non-zero):
              (100,2) first batches checked (its part mapper, prober and
              reduced probe_mass); frequencies equal to the single-GPU
              maps'
- 10. mesh4   four ranks spawned on cuda:0 over gloo: dryrun_multichip(4);
+ 12. mesh4   four ranks spawned on cuda:0 over gloo: dryrun_multichip(4);
              chrI-chrVII in two parts (-xm) on part(2) x data(2) at
              (100,2) and (24,1) and the multipart phase's -d selection,
              and data(4) on its 3-part index: output files byte-equal to
@@ -93,7 +119,7 @@ or of the JAX package.  Phases (any failure exits non-zero):
              held against the plain versions (the reduced probe_mass entry
              included); part(2) x data(1) over NCCL where the machine has
              two cards
- 11. rowgather  `experiments/row_gather.py`, the port of the Pallas
+ 13. rowgather  `experiments/row_gather.py`, the port of the Pallas
              row-DMA harness (benchmarks/pallas_experiments.py), on the card:
              its two lines at the harness's sizes (every lanes variant equal
              to the plain version) and its sweep of random-row read rates
@@ -104,7 +130,7 @@ or of the JAX package.  Phases (any failure exits non-zero):
              512 B) from the 20 MB, 256 MiB and 4 GiB tables; the kernel's edge cases
              (every lanes value, 0 included) against its plain version; the
              read rates of candidate_step and dimer_step beside the sweep's
- 12. kernels the largest checked call of each kernel (and of each
+ 14. kernels the largest checked call of each kernel (and of each
              candidate_step and dimer_step variant, of compact's short-row,
              long-row and counting calls, of count_tail at Fe = 1 and with
              the zero-error outputs) is timed on the card (kernel, plain
@@ -114,7 +140,7 @@ or of the JAX package.  Phases (any failure exits non-zero):
              dependent row reads at its sub-row width, as many as its LF
              steps); compact must have been checked in each regime with
              count on and off
- 13. seed tables  the build (`with_seed_tables`: seed_build's launches and
+ 15. seed tables  the build (`with_seed_tables`: seed_build's launches and
              no other kernel) on the main index: device ms, launches, bound,
              its multiple of the launch floor and its peak allocated bytes;
              then the per-batch lookup (seed_lookup) at two batch sizes
@@ -802,7 +828,7 @@ def library_fn(name, args):
 
 
 def time_kernels(checker, launches, chain_rates):
-    """Phase 12: the largest checked call of each kernel (and of each entry
+    """Phase 14: the largest checked call of each kernel (and of each entry
     of `timing_keys`), timed, each beside the launch floor (one empty
     kernel timed the same way) and locate beside the chain yardstick (the
     rowgather phase's dependent reads, `chain_rates`: {row bytes: {lanes:
@@ -1041,10 +1067,12 @@ class first_batches_checked:
     (the probe, each tier's calibration batch, each tier's fused program or
     phase-A collector, the dedup pre-pass) and of every phase-B extender
     (each rung and mode) is profiled (with `profile`) and then run with
-    every kernel call held against its plain version."""
+    every kernel call held against its plain version; with `keep`, the
+    largest calls are kept for the kernels phase's timing."""
 
-    def __init__(self, checker, where: str, profile: bool = False):
+    def __init__(self, checker, where: str, profile: bool = False, keep: bool = True):
         self.checker, self.where, self.profile = checker, where, profile
+        self.keep = keep
         self.seen = set()
 
     def _first(self, label, call):
@@ -1063,7 +1091,7 @@ class first_batches_checked:
             log(f"memory: {label}: peak allocated {peak} B ({peak - base} B above "
                 f"what was allocated before the batch)")
             profile_batch(call, label)
-        checker.on, checker.keep, checker.phase = True, True, label
+        checker.on, checker.keep, checker.phase = True, self.keep, label
         try:
             return call()
         finally:
@@ -1826,6 +1854,228 @@ def multipart_phase(work, checker):
 # phases 9-10: the map on rank meshes (torch.distributed)
 # ---------------------------------------------------------------------------
 
+XC_MBP = 10  # the crosscheck phase's chrR, in Mbp
+
+
+def crosscheck_start(work):
+    """Write the crosscheck phase's chrR, build the independent counter and
+    start its (20,1) and (30,2) runs, each in a process of its own.  Called
+    after mesh1, so that the counters share the host's cores with the check
+    phase's maps and with no timed or profiled map and no kernel timing."""
+    from genmap_tpu_torch.scripts import realistic_crosscheck as rc
+
+    xdir = os.path.join(work, "crosscheck")
+    os.makedirs(xdir)
+    t = time.perf_counter()
+    codes, fa = rc.write_corpus(xdir, int(XC_MBP * 1_000_000))
+    exe = rc.build_counter(xdir)
+    counters = rc.start_counters(exe, codes, xdir)
+    log(f"crosscheck: {XC_MBP} Mbp chrR (seed {rc.SEED}) written and the counter built "
+        f"in {time.perf_counter() - t:.2f} s; its runs at "
+        f"{', '.join(f'({k},{e})' for k, e in counters)} started")
+    return dict(dir=xdir, fa=fa, counters=counters)
+
+
+def crosscheck_phase(xc, checker):
+    """Phase 9: the 10 Mbp chrR's bedgraphs at (20,1) and (30,2) on the card
+    against the independent counter's, byte for byte."""
+    from genmap_tpu_torch.scripts import realistic_crosscheck as rc
+
+    idx = os.path.join(xc["dir"], "idx")
+    log(f"crosscheck: index built in {rc.build_index(xc['fa'], idx):.2f} s")
+    res = {}
+    for k, e in rc.CONFIGS:
+        before = dict(checker.calls)
+        with first_batches_checked(checker, f"crosscheck ({k},{e})", keep=False) as fb:
+            checker.on, checker.phase = True, f"crosscheck ({k},{e}): the seed-table build"
+            r = rc.map_config(idx, os.path.join(xc["dir"], f"out_{k}_{e}"), k, e, "cuda")
+        n = {x: checker.calls[x] - before[x] for x in NAMES if checker.calls[x] > before[x]}
+        counter = xc["counters"][(k, e)]
+        counter_s = counter.join()
+        cmp = rc.compare(r["bedgraph"], counter.out)
+        log(rc.config_line(k, e, f"{XC_MBP} Mbp", r, counter_s, cmp))
+        log(f"crosscheck: ({k},{e}): the seed-table build and the first batch of "
+            f"{len(fb.seen)} programs held against the plain versions (their time is in "
+            f"the compute seconds above): kernel calls equal to plain {n}")
+        if not cmp["equal"]:
+            raise AssertionError(f"({k},{e}): the card's bedgraph differs from the "
+                                 f"independent counter's: {cmp['first_diff']}")
+        missing = [x for x in ("extract_needles", "candidate_step", "compact",
+                               "count_tail", "seed_lookup", "seed_build")
+                   if not r["launches"].get(x)]
+        if missing or not n.get("candidate_step"):
+            raise AssertionError(f"({k},{e}): kernels not launched {missing}, or no "
+                                 "candidate_step call checked")
+        rep = r["report"]
+        res[f"{k},{e}"] = dict(byte_equal=True, lines=cmp["lines"][0],
+                               compute_s=rep["compute_s"],
+                               kmers_per_s=rep["n_kmers"] / rep["compute_s"],
+                               counter_s=counter_s, launches=r["launches"])
+    return res
+
+
+# the JAX package's differential sweep (tests/test_engine_differential.py:
+# test_exact .. test_hamming_4): (errors, seed base, K set)
+ORACLE_SWEEP = ((0, 100, tuple(range(1, 9))), (1, 200, (2, 4, 6)), (2, 300, (4, 6, 8)),
+                (3, 400, (5, 8)), (4, 500, (6, 8)))
+# its large-K cases (tests/test_large_k.py): (K, errors, overlap fraction)
+ORACLE_LARGE_K = ((20, 1, None), (24, 2, None), (30, 2, 0.5), (16, 3, None), (12, 0, None))
+
+
+def oracle_engine(seqs, dev, sampling, batch_blocks, name="genome.fa"):
+    from genmap_tpu_torch.engine.mappability import MappabilityEngine
+    from genmap_tpu_torch.index.build import build_index
+    from genmap_tpu_torch.io.fasta import FastaFile
+
+    ff = FastaFile(name=name)
+    ff.ids = [f"seq{i}" for i in range(len(seqs))]
+    ff.seqs = seqs
+    return MappabilityEngine(build_index([ff], sampling=sampling),
+                             batch_blocks=batch_blocks, device=dev)
+
+
+def oracle_at(seqs, pos, k, e, cap, rc=True):
+    """The oracle's frequency of the k-mer at each position of seqs[0]."""
+    from genmap_tpu_torch.engine.oracle import trivial_frequency
+
+    return np.array([trivial_frequency(seqs, [seqs[0][p : p + k]], k, e, cap, rc)[0]
+                     for p in pos], dtype=np.uint32)
+
+
+def repeat_genome(rng, total=600_000):
+    """tests/test_stress_repeats.py's genome: tandem repeats, homopolymer
+    runs, mutated copies of one 300 bp element, random spacers."""
+    parts, size = [], 0
+    element = rng.integers(0, 4, size=300, dtype=np.uint8)
+    while size < total:
+        r = rng.random()
+        if r < 0.25:
+            unit = rng.integers(0, 4, size=int(rng.integers(2, 12)), dtype=np.uint8)
+            seg = np.tile(unit, int(rng.integers(20, 200)))
+        elif r < 0.35:
+            seg = np.full(int(rng.integers(50, 400)), rng.integers(0, 4), np.uint8)
+        elif r < 0.55:
+            seg = element.copy()
+            for _ in range(int(rng.integers(0, 8))):
+                j = int(rng.integers(0, len(seg)))
+                seg[j] = (seg[j] + 1 + rng.integers(0, 3)) % 4
+        else:
+            seg = rng.integers(0, 4, size=int(rng.integers(200, 1500)), dtype=np.uint8)
+        parts.append(seg)
+        size += len(seg)
+    return np.concatenate(parts)[:total]
+
+
+def oracle_phase(dev, checker):
+    """Phase 10: the JAX package's oracle tests on the card, against the
+    port's oracle, every kernel call checked (the repeat-rich maps: the
+    seed-table build and the first batch of each program)."""
+    from genmap_tpu_torch.cli.map_cmd import default_overlap
+    from genmap_tpu_torch.engine.mappability import SearchParams
+    from genmap_tpu_torch.engine.oracle import trivial_frequency
+
+    before = dict(checker.calls)
+    maps = {}
+
+    def run(eng, what, k, o, e, cap, rc):
+        """One map; per case its maps, seconds and kernel calls checked."""
+        checker.phase = f"oracle {what} k={k} o={o} e={e} rc={rc}"
+        calls, t = sum(checker.calls.values()), time.perf_counter()
+        res = eng.compute_file(eng.layouts[0], SearchParams(length=k, overlap=o,
+                                                            rev_compl=rc), e, cap)
+        n, s, c = maps.get(what, (0, 0.0, 0))
+        maps[what] = (n + 1, s + time.perf_counter() - t,
+                      c + sum(checker.calls.values()) - calls)
+        return res.c
+
+    def agree(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        if bad:
+            raise AssertionError(f"{checker.phase}: {bad} positions differ from the "
+                                 "oracle (-1: the shapes differ)")
+
+    checker.on, checker.keep = True, False
+    try:
+        for alpha in (4, 5):  # the differential sweep
+            for e, seed, ks in ORACLE_SWEEP:
+                rng = np.random.default_rng(seed + alpha)
+                seqs = [rng.integers(0, alpha, size=120, dtype=np.uint8) for _ in range(3)]
+                checker.phase = f"oracle: the sweep's index (Dna{alpha}, e={e})"
+                eng = oracle_engine(seqs, dev, 3, 64)
+                min_k = e + 1 + (e >= 2)
+                for k in ks:
+                    rc = bool(rng.integers(0, 2))
+                    want = trivial_frequency(seqs, seqs, k, e, 255, rc)
+                    for o in range(min_k, k + 1):
+                        agree(run(eng, f"sweep Dna{alpha} e={e}", k, o, e, 255, rc), want)
+        for k, e, frac in ORACLE_LARGE_K:
+            rng = np.random.default_rng(k * 100 + e)
+            seq = rng.integers(0, 4, size=3000, dtype=np.uint8)
+            for p in (500, 1200, 2444):
+                seq[p : p + 60] = seq[100:160]
+            seqs = [seq, rng.integers(0, 4, size=800, dtype=np.uint8)]
+            eng = oracle_engine(seqs, dev, 7, 32)
+            x = default_overlap(k, e) if frac is None else int(k * frac)
+            o = k - min(x, k - e - 2, k - 1)
+            for rc in (True, False):
+                agree(run(eng, f"large-K ({k},{e})", k, o, e, 255, rc),
+                      trivial_frequency(seqs, seqs, k, e, 255, rc))
+        seqs = [np.zeros(300, dtype=np.uint8)]  # uint8 saturation
+        c = run(oracle_engine(seqs, dev, 3, 64), "saturation uint8", 4, 4, 0, 255, False)
+        agree(c, trivial_frequency(seqs, seqs, 4, 0, 255, False))
+        if c[0] != 255:
+            raise AssertionError("a one-letter genome does not saturate the uint8 cap")
+        rng = np.random.default_rng(2)  # sequences shorter than K
+        seqs = [rng.integers(0, 4, size=n, dtype=np.uint8) for n in (20, 3, 6)]
+        eng = oracle_engine(seqs, dev, 3, 64)
+        for k, o in ((4, 4), (6, 6), (4, 2), (6, 4)):
+            agree(run(eng, "shorter than K", k, o, 0, 65535, True),
+                  trivial_frequency(seqs, seqs, k, 0, 65535, True))
+        rng = np.random.default_rng(77)  # homopolymers, at every 7th position
+        seq = np.concatenate([np.zeros(3000, np.uint8),
+                              rng.integers(0, 4, size=2000, dtype=np.uint8),
+                              np.full(3000, 3, np.uint8)])
+        pos = np.arange(0, len(seq) - 15 + 1, 7)
+        c = run(oracle_engine([seq], dev, 5, 64, "h.fa"), "homopolymer", 15, 12, 1, 255, True)
+        agree(c[pos], oracle_at([seq], pos, 15, 1, 255))
+        if not (c[0] == 255 and c[6500] == 255):
+            raise AssertionError("homopolymer k-mers do not saturate the uint8 cap")
+        for k, e in ((20, 1), (36, 2)):  # the repeat-rich genome, sampled
+            rng = np.random.default_rng(1000 + k)
+            seq = repeat_genome(rng)
+            checker.on, checker.phase = True, f"oracle: the repeat-rich index ({k},{e})"
+            eng = oracle_engine([seq], dev, 8, 256, "rep.fa")
+            o = k - min(max(1, int(k * 0.25)), k - e - 2)
+            # 600 kbp through up to eight tiers: checking every call here
+            # would cost more than the rest of the phase; the first batch
+            # of each program is checked
+            with first_batches_checked(checker, f"oracle repeat-rich ({k},{e})", keep=False):
+                c = run(eng, f"repeat-rich ({k},{e})", k, o, e, 65535, True)
+            if eng.stats["max_tier"] < 1:
+                raise AssertionError(f"repeat-rich ({k},{e}): no tier escalation "
+                                     f"({eng.stats['tier_blocks']})")
+            pos = rng.integers(0, len(seq) - k + 1, size=30)
+            pos = np.concatenate([pos, np.argsort(c[: len(seq) - k + 1])[-3:]])
+            agree(c[pos], oracle_at([seq], pos, k, e, 65535))
+            log(f"oracle: repeat-rich ({k},{e}): max tier {eng.stats['max_tier']}, blocks "
+                f"per tier {eng.stats['tier_blocks']}; {len(pos)} sampled positions (max "
+                f"frequency {int(c.max())}) equal to the oracle")
+    finally:
+        checker.on = False
+    n = {x: checker.calls[x] - before[x] for x in NAMES if checker.calls[x] > before[x]}
+    total = sum(m for m, _s, _c in maps.values())
+    log(f"oracle: {total} maps equal to the oracle; per case maps, seconds (checks "
+        "included) and kernel calls checked: "
+        + ", ".join(f"{w} {m} / {s:.2f} s / {c}" for w, (m, s, c) in maps.items()))
+    log(f"oracle: kernel calls equal to plain {n}")
+    for alpha in (4, 5):
+        for e, _seed, _ks in ORACLE_SWEEP:
+            if f"sweep Dna{alpha} e={e}" not in maps:
+                raise AssertionError(f"the sweep ran no map at Dna{alpha} e={e}")
+    return dict(maps=total, by_case={w: m for w, (m, _s, _c) in maps.items()},
+                kernel_calls=n)
+
+
 MESH_XM = 6_000_000  # -xm of the mesh phase: chrI-chrVII in exactly two parts
 COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
 
@@ -1882,7 +2132,7 @@ def mesh_map(idx, out, k, e, mesh, extra=(), report=None):
 
 
 def mesh1_phase(work, idx, ref, checker):
-    """Phase 9: data_mesh(1) and part_data_mesh(1, 1) maps of the main
+    """Phase 11: data_mesh(1) and part_data_mesh(1, 1) maps of the main
     genome in a NCCL world of one rank (this process, cuda:0): a counted
     run (k-mers/s, collectives, host time in their calls), at (100,2) a
     profiled run (NCCL device time), and a second counted run; the part
@@ -2014,7 +2264,7 @@ def nccl2_rank(idx, out):
 
 
 def mesh4_phase(work, refs):
-    """Phase 10: four ranks on cuda:0 over gloo (each spawned process binds
+    """Phase 12: four ranks on cuda:0 over gloo (each spawned process binds
     cuda:0): dryrun_multichip(4); chrI-chrVII in two parts (-xm) on
     part(2) x data(2) at (100,2), (24,1) and the multipart phase's -d
     selection, and data(4) on its 3-part index at (100,2): every output
@@ -2185,7 +2435,7 @@ def dense_candidate_step(dev, checker, idx):
 
 
 def rowgather_phase(dev, checker, idx):
-    """Phase 11: the row-gather entry point (`experiments/row_gather.py`,
+    """Phase 13: the row-gather entry point (`experiments/row_gather.py`,
     the port of the Pallas harness) at the harness's sizes and its sweep,
     launch counters set to 0 just before and read just after (row_gather
     must launch); the edge cases against the plain versions; then the read
@@ -2300,14 +2550,23 @@ def main() -> int:
             launches, summary["main"], idx, chroms, gpu_freq, ref = phase(
                 "main", main_path, dev, work, checker)
             summary["mesh1"] = phase("mesh1", mesh1_phase, work, idx, ref, checker)
-            summary["check"] = phase("check", check_phase, work, idx, chroms,
-                                     gpu_freq, checker)
-            csv_counts, summary["csv"] = phase("csv", csv_phase, work, idx, chroms,
-                                               gpu_freq)
-            summary["dedup"] = phase("dedup", dedup_phase, dev, checker)
-            summary["ep"] = phase("ep", ep_phase, work)
-            summary["multipart"], refs = phase("multipart", multipart_phase, work,
-                                               checker)
+            xc = crosscheck_start(work)
+            try:
+                summary["check"] = phase("check", check_phase, work, idx, chroms,
+                                         gpu_freq, checker)
+                log("crosscheck: counters done by the end of phase check: "
+                    f"{ {k: c.seconds is not None for k, c in xc['counters'].items()} }")
+                csv_counts, summary["csv"] = phase("csv", csv_phase, work, idx, chroms,
+                                                   gpu_freq)
+                summary["dedup"] = phase("dedup", dedup_phase, dev, checker)
+                summary["ep"] = phase("ep", ep_phase, work)
+                summary["multipart"], refs = phase("multipart", multipart_phase, work,
+                                                   checker)
+                summary["crosscheck"] = phase("crosscheck", crosscheck_phase, xc, checker)
+            finally:
+                for c in xc["counters"].values():
+                    c.stop()
+            summary["oracle"] = phase("oracle", oracle_phase, dev, checker)
             summary["mesh4"] = phase("mesh4", mesh4_phase, work, refs)
             rg_row, summary["rowgather"] = phase("rowgather", rowgather_phase, dev,
                                                  checker, idx)

@@ -1,1 +1,2 @@
-"""Per-file orchestration and the brute-force oracle."""
+"""Per-file orchestration (`mappability`) and the brute-force oracle of the
+tests (`oracle`)."""

@@ -115,7 +115,7 @@ def _rank_main(rank, world, fn, args, device, backend, store_path, timeout_s, q)
         q.put((rank, False, traceback.format_exc()))
 
 
-def launch_local(world: int, fn, *args, device="cpu", backend: str | None = None,
+def launch_local(world: int, fn, *args, device="cuda", backend: str | None = None,
                  store_dir: str, timeout_s: float = 600.0) -> list:
     """Run fn(*args) on `world` ranks spawned on this machine and return
     each rank's result, in rank order.

@@ -3,7 +3,7 @@
 After tests/test_engine_differential.py::test_dedup_matches_normal, on a
 Dna5 genome that holds a second copy of itself (duplicate rate ~0.5), so
 that dedup is worth it and `_compute_with_dedup` takes over: the value-key
-path (K <= 27) and the zero-error interval-key path (K > 27, e > 0, an e=0
+path (K <= 27; at e = 0 too, the JAX file's quick case (8,0,8)) and the zero-error interval-key path (K > 27, e > 0, an e=0
 pre-pass collecting exact intervals).  Integer results: exact.
 """
 
@@ -30,7 +30,8 @@ def _data():
     return build_index([ff], sampling=4)
 
 
-@pytest.mark.parametrize("ke", [(20, 1, 16), (30, 2, 27)], ids=["value_keys", "interval_keys"])
+@pytest.mark.parametrize("ke", [(20, 1, 16), (30, 2, 27), (8, 0, 8)],
+                         ids=["value_keys", "interval_keys", "exact_value_keys"])
 def test_dedup_matches_normal_and_jax(ke, monkeypatch):
     K, e, o = ke
     data = _data()

@@ -34,6 +34,8 @@ _MODULES = (
     "genmap_tpu_torch.parallel.partmesh",
     "genmap_tpu_torch.parallel.dryrun",
     "genmap_tpu_torch.experiments.row_gather",
+    "genmap_tpu_torch.engine.oracle",
+    "genmap_tpu_torch.scripts.realistic_crosscheck",
 )
 
 
@@ -89,6 +91,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         DeviceText.from_host(data)
     with pytest.raises(RuntimeError, match="cuda"):
         DeviceIndex.from_part(data, data.parts[0])
+
+
+def test_launch_local_defaults_to_cuda():
+    import inspect
+
+    from genmap_tpu_torch.parallel.dist import launch_local
+
+    assert inspect.signature(launch_local).parameters["device"].default == "cuda"
+
+
+def test_realistic_crosscheck_needs_a_card_unless_told_cpu(tmp_path):
+    """Without a card the script raises before it writes anything; with
+    `--device cpu` it runs (tests/test_torch_crosscheck.py runs it)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card contract is not testable")
+    from genmap_tpu_torch.scripts.realistic_crosscheck import main
+
+    work = tmp_path / "work"
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["0.01", "--work", str(work)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["0.01", "--work", str(work), "--device", "cuda"])
+    assert not work.exists()
 
 
 def test_cli_map_without_card_fails_cleanly(tmp_path):
