@@ -22,6 +22,21 @@ counters start after mesh1 and run beside the check phase:
              and the N-flagged `far` path); every kernel call is also
              computed by its plain PyTorch version on the card and must
              agree exactly
+  2b. wide   each kernel whose arguments carry text positions, SA rows or
+             interval sizes, called on seeded synthetic inputs at values at
+             or past 2^31 and held call by call against its plain version:
+             extract_needles on a packed text of 2^31 + 2^22 symbols (starts
+             just below and past 2^31, ending at `limit` and at the text's
+             last symbol, N bits), candidate_step (exact and fast, R = 5 and
+             4) on random rank rows of a 4.17e9-symbol part (~3.4 GB) with
+             states whose mlo, sizes or hi lie past 2^31 and the root
+             interval, seed_lookup with tables past 2^31 and n_total
+             4.17e9, compact (each regime) and gather_states carrying
+             states past 2^31, count_tail with sizes and exact flo past 2^31
+             and hits at the cap (strand rows of the same part), probe_mass
+             with masses past 2^32 (saturating), alone, over parts and
+             reduced; locate is covered by the hg38 run's locate check and
+             dimer_step has no rows past 2^31 (both say so)
   3. main    `genmap-tpu-torch index` of a 12.07 Mbp genome-like genome laid
              out as S. cerevisiae's 16 nuclear chromosomes (Dna4), then
              `genmap-tpu-torch map -K 100 -E 2` of the whole genome on the
@@ -1032,6 +1047,175 @@ def dna5_phase(dev, checker):
             f"blocks flagged to the next tier; kernel calls equal to plain {n}")
         if min(n[k] for k in names) == 0:
             raise AssertionError(f"the Dna5 batch did not call every kernel: {n}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: kernels at values past 2^31 (hg38 scale)
+# ---------------------------------------------------------------------------
+
+# both-strand symbols of the hg38 run's first part (3.1 Gbp, the default
+# partition: chr1-chr12), and the wide extract_needles case's packed text
+WIDE_N = 4_169_941_722
+WIDE_TEXT = 2**31 + 2**22
+WIDE_NAMES = ("extract_needles", "candidate_step", "seed_lookup", "compact",
+              "gather_states", "count_tail", "probe_mass")
+
+
+def wide_phase(dev, checker):
+    """Every kernel whose arguments carry text positions, SA rows or
+    interval sizes, called directly on seeded synthetic inputs whose values
+    lie at or past 2^31 and held call by call against its plain version."""
+    import types
+
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.ops import rank
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def rand(*size):
+        return torch.rand(size, device=dev, generator=g)
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, size, device=dev, generator=g, dtype=torch.int64)
+
+    def bits(x):  # int32 holding the uint32 value of x
+        return (x - (x >> 31 << 32)).to(torch.int32)
+
+    def words32(size):
+        return torch.randint(-2**31, 2**31 - 1, size, device=dev, generator=g,
+                             dtype=torch.int32)
+
+    N = WIDE_N
+    before = dict(checker.calls)
+    # the later phases' checks read the variants they saw; these calls add none
+    variants = {k: set(v) for k, v in checker.variants.items()}
+    checker.on, checker.phase = True, "wide"
+    try:
+        # extract_needles: a packed text past 2^31 symbols, starts just below
+        # and past 2^31, ending at `limit` and at the text's last symbol
+        n = WIDE_TEXT
+        words = words32(((n + 15) // 16,))
+        nwords = torch.zeros(((n + 31) // 32,), dtype=torch.int32, device=dev)
+        for w0 in ((2**31 >> 5) - 8, nwords.shape[0] - 16):  # N bits at both edges
+            nwords[w0 : w0 + 16] = bits(1 << ints(0, 32, (16,)))
+        hot = ints(0, nwords.shape[0], (1 << 16,))
+        nwords[hot] = bits(1 << ints(0, 32, (1 << 16,)))
+        for Ln, limit in ((34, n), (148, n), (34, 2**31 + 1000)):
+            edge = [2**31 - Ln - 1, 2**31 - Ln, 2**31 - 20, 2**31 - 1, 2**31, 2**31 + 1,
+                    limit - Ln, limit - Ln + 1, limit - 1, n - Ln, n - 1]
+            starts = torch.cat([torch.tensor(edge, dtype=torch.int64, device=dev),
+                                ints(2**31 - 2**20, n - 1, (4096,)), ints(0, n, (4096,))])
+            kernels.extract_needles(words, nwords, bits(starts), Ln, limit, n)
+        del words, nwords
+
+        # candidate_step: random rank rows of a WIDE_N-symbol part (~3.4 GB),
+        # states with mlo past 2^31, with sizes past 2^31, and the root
+        A, subw = 4, 52
+        table = words32((N // 512 + 2, 2 * subw))
+        C = bits(torch.tensor([24 + c * (N // 4) for c in range(A)], device=dev))
+        index = types.SimpleNamespace(fwd_blocks=table, nchars=A, has_n=False, C=C)
+        for R, exact, B, per, G in ((5, True, 256, 512, 3), (5, False, 256, 512, 3),
+                                    (4, False, 64, 784, 49), (4, True, 64, 784, 49)):
+            S = B * per
+            k = ints(0, 3, (S,))
+            lo = torch.where(k == 0, ints(2**31, N - 600, (S,)), ints(0, 2**30, (S,)))
+            lo = torch.where(k == 2, 0, lo)
+            size = torch.where(k == 0, ints(1, 600, (S,)), ints(2**31, N - 2**30, (S,)))
+            size = torch.where(k == 2, N, size)
+            rlo = torch.where(k == 0, ints(2**31, N - 600, (S,)), lo)
+            st = torch.stack([lo, rlo, size, ints(0, 3, (S,)), ints(0, G, (S,))])[:R]
+            kernels.candidate_step(
+                index, bits(st).contiguous(), (rand(S) < 0.4).to(torch.uint8),
+                per_block=per, inner=per if R == 5 else 16,
+                nch=ints(0, 5, (B, G)).to(torch.uint8),
+                right=ints(0, 2, (G,)).to(torch.uint8),
+                act=torch.ones(G, dtype=torch.uint8, device=dev),
+                u=torch.full((G,), 2, dtype=torch.int32, device=dev),
+                lreq=torch.zeros(G, dtype=torch.int32, device=dev), exact=exact)
+        del table, index
+
+        # seed_lookup: tables whose entries lie past 2^31, n_total past 2^31
+        t_top = rank.seed_depth(N)
+        L = rank.seed_level_offset(t_top + 1)
+        mlo = ints(2**31, N, (L,))
+        ssz = torch.where(rand(L) < 0.2, 0, torch.where(rand(L) < 0.5, ints(2**31, N, (L,)),
+                                                         ints(1, 5000, (L,))))
+        sidx = types.SimpleNamespace(seed_mlo=bits(mlo), seed_size=bits(ssz), has_seed=True,
+                                     nchars=4)
+        for B, P, Fp, t, Ln in ((8192, 3, 4, t_top, 148), (8192, 3, 8, 10, 34),
+                                (1024, 3, 4, 0, 34)):
+            needles = ints(0, 4, (B, Ln)).to(torch.uint8)
+            needles[rand(B, Ln) < 0.01] = 4
+            a_pos = ints(0, Ln - t + 1, (P,)).to(torch.int32)
+            kernels.seed_lookup(sidx, needles, a_pos, t, Fp, N)
+        del sidx, mlo, ssz
+
+        # compact and gather_states carrying states whose rows all lie past
+        # 2^31 (2^32 - 1 included), in each of compact's regimes
+        for R, rows, M, F, count in ((4, 8192, 16, 4, False), (5, 2048, 1024, 64, True),
+                                     (4, 64, 8192, 512, False)):
+            arrays = ints(-2**31, 0, (R, rows, M)).to(torch.int32)
+            arrays[:, :, 0] = -1
+            kernels.compact(arrays, (rand(rows, M) < rand(rows, 1)).to(torch.uint8), F, count)
+        for B, npad, nrow, Fc, Fe in ((1024, 32, 26, 256, 128), (2048, 1024, 1000, 32, 64)):
+            st = ints(-2**31, 0, (4, B, Fc)).to(torch.int32)
+            ridx = torch.zeros(npad, dtype=torch.int32, device=dev)
+            ridx[:nrow] = ints(0, B, (nrow,)).to(torch.int32)
+            kernels.gather_states(st, (rand(B, Fc) < 0.5).to(torch.uint8), ridx, nrow, Fe)
+
+        # count_tail: sizes and exact flo past 2^31, hits at the cap; strand
+        # rows of a WIDE_N-symbol part (~650 MB)
+        strand = words32((N // 128 + 1, 5))
+        cidx = types.SimpleNamespace(strand_blocks=strand)
+        for B, J, Fe, cap, rc, exact in ((2048, 5, 16, 65535, True, False),
+                                         (2048, 5, 16, 255, False, False),
+                                         (1024, 5, 16, 65535, True, True),
+                                         (1024, 5, 16, 65535, False, True)):
+            S = B * J * Fe
+            k = ints(0, 2, (S,))
+            flo = torch.where(k == 0, ints(2**31, N - 5000, (S,)), ints(0, 2**30, (S,)))
+            size = torch.where(k == 0, ints(1, 5000, (S,)), ints(2**31, N - 2**30, (S,)))
+            st = torch.stack([flo, ints(2**31, N, (S,)), size, ints(0, 3, (S,))])
+            kernels.count_tail(cidx, bits(st), (rand(S) < 0.7).to(torch.uint8),
+                               ints(0, J + 1, (B,)).to(torch.int32), J, cap, rc, exact)
+        del strand, cidx
+
+        # probe_mass: per-plan masses past 2^32, which saturate, alone and
+        # summed over parts
+        B, F, P, Ln = 8192, 12, 3, 34
+        S = B * F
+        size = torch.where(rand(S) < 0.5, ints(2**31, 2**32, (S,)), ints(1, 4, (S,)))
+        st = bits(torch.stack([ints(2**31, N, (S,)), ints(2**31, N, (S,)), size,
+                               torch.zeros_like(size), ints(0, P, (S,))])).view(5, B, F)
+        valid = (rand(B, F) < 0.6).to(torch.uint8)
+        needles = ints(0, 4, (B, Ln)).to(torch.uint8)
+        thr = ints(0, 2, (P,)).to(torch.int32)
+        ovf = (rand(B) < 0.05).to(torch.uint8)
+        acc = ints(2**31, 2**32, (B, P + 1))
+        acc[:, P] = (rand(B) < 0.05).to(torch.int64)
+        kernels.probe_mass(st, valid, ovf, needles, thr, False, with_mass=True)
+        kernels.probe_mass(st, valid, ovf, needles, thr, False, acc=acc, last=False)
+        kernels.probe_mass(st, valid, ovf, needles, thr, False, with_mass=True, acc=acc)
+        kernels.probe_mass(None, None, None, None, thr, False, with_mass=True, acc=acc)
+        torch.cuda.synchronize()
+    finally:
+        checker.on, checker.variants = False, variants
+    calls = {k: checker.calls[k] - before[k] for k in WIDE_NAMES}
+    errs = {k: checker.err[k] for k in WIDE_NAMES}
+    log(f"wide: kernel calls at values past 2^31 equal to plain {calls} (max abs err "
+        f"{errs}) in {time.perf_counter() - t0:.1f} s")
+    if min(calls.values()) == 0:
+        raise AssertionError(f"the wide phase did not check every kernel: {calls}")
+    log("wide: locate is not held here: no consistent synthetic index of 2^31 SA "
+        "rows is cheap to make; genmap_tpu_torch/scripts/hg38_demo.py's locate check "
+        "maps with locations on a 4.17e9-symbol part (PERF.md)")
+    log("wide: dimer_step is not held here: dimer rows exist only in parts below "
+        "2^31 symbols (index/fmindex.py: build_dimer_rows)")
+    torch.cuda.empty_cache()
+    return dict(calls=calls, seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -2546,6 +2730,7 @@ def main() -> int:
 
     with _Checker(kernels) as checker:
         phase("dna5", dna5_phase, dev, checker)
+        summary["wide"] = phase("wide", wide_phase, dev, checker)
         with tempfile.TemporaryDirectory(prefix="genmap_smoke_") as work:
             launches, summary["main"], idx, chroms, gpu_freq, ref = phase(
                 "main", main_path, dev, work, checker)

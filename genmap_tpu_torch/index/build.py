@@ -57,21 +57,30 @@ def _make_ctext(seqs: list[np.ndarray]) -> np.ndarray:
 
 
 def _pack_text(seqs: list[np.ndarray], has_n: bool) -> tuple[np.ndarray, np.ndarray, int]:
-    codes = np.concatenate(seqs) if seqs else np.empty(0, dtype=np.uint8)
-    n = len(codes)
-    npad = (-n) % 16
-    c2 = np.concatenate([np.where(codes >= 4, 0, codes), np.zeros(npad, np.uint8)])
-    c2 = c2.astype(np.uint64).reshape(-1, 16)
-    words = (c2 << (2 * np.arange(16, dtype=np.uint64))[None, :]).sum(axis=-1)
-    words = words.astype(np.uint32)
-    if has_n:
-        bpad = (-n) % 32
-        nb = np.concatenate([(codes == 4), np.zeros(bpad, bool)]).astype(np.uint64)
-        nb = nb.reshape(-1, 32)
-        nwords = (nb << np.arange(32, dtype=np.uint64)[None, :]).sum(axis=-1)
-        nwords = nwords.astype(np.uint32)
-    else:
-        nwords = np.empty(0, dtype=np.uint32)
+    """2-bit words (N as code 0) and N bit words of the concatenated text,
+    packed _CHUNK symbols at a time: whole-text uint64 temporaries would
+    take 16 B per base (50 GB at 3.1 Gbp)."""
+    n = sum(len(s) for s in seqs)
+    words = np.zeros((n + 15) // 16, dtype=np.uint32)
+    nwords = np.zeros((n + 31) // 32, dtype=np.uint32) if has_n else np.empty(0, np.uint32)
+    offs = np.cumsum([0] + [len(s) for s in seqs])
+    sh2 = 2 * np.arange(16, dtype=np.uint64)
+    sh1 = np.arange(32, dtype=np.uint64)
+    for c0 in range(0, n, _CHUNK):  # _CHUNK is a multiple of 32
+        c1 = min(c0 + _CHUNK, n)
+        codes = np.zeros(-(-(c1 - c0) // 32) * 32, dtype=np.uint8)
+        i = int(np.searchsorted(offs, c0, side="right")) - 1
+        while i < len(seqs) and offs[i] < c1:
+            a, b = max(c0, int(offs[i])), min(c1, int(offs[i + 1]))
+            codes[a - c0 : b - c0] = seqs[i][a - int(offs[i]) : b - int(offs[i])]
+            i += 1
+        c2 = np.where(codes >= 4, 0, codes).astype(np.uint64).reshape(-1, 16)
+        w = (c2 << sh2[None, :]).sum(axis=-1).astype(np.uint32)
+        words[c0 // 16 : c0 // 16 + len(w)] = w[: len(words) - c0 // 16]
+        if has_n:
+            nb = (codes == 4).astype(np.uint64).reshape(-1, 32)
+            nw = (nb << sh1[None, :]).sum(axis=-1).astype(np.uint32)
+            nwords[c0 // 32 : c0 // 32 + len(nw)] = nw[: len(nwords) - c0 // 32]
     return words, nwords, n
 
 
@@ -380,18 +389,21 @@ def build_index(
                 )
     if workers > 1 and len(groups) > 1:
         # parts are fully independent: build them in parallel processes (the
-        # SACA is latency-bound on this host, so extra processes scale well)
+        # SACA is latency-bound on this host, so extra processes scale well);
+        # a worker that dies (the kernel's OOM killer) raises
+        # BrokenProcessPool here instead of hanging the build
         import multiprocessing as mp
         import tempfile
+        from concurrent.futures import ProcessPoolExecutor
 
         base = spill_dir or tempfile.mkdtemp(prefix="genmap_parts_")
         jobs = [
             (seqs[s:e], sampling, has_n, s, dimer, os.path.join(base, f"part{i}"))
             for i, (s, e) in enumerate(groups)
         ]
-        ctx = mp.get_context("spawn")
-        with ctx.Pool(min(workers, len(groups))) as pool:
-            dirs = pool.map(_build_part_to_dir, jobs)
+        with ProcessPoolExecutor(min(workers, len(groups)),
+                                 mp_context=mp.get_context("spawn")) as pool:
+            dirs = list(pool.map(_build_part_to_dir, jobs))
         parts = [_load_part_dir(d, has_n) for d in dirs]
     else:
         parts = [

@@ -151,20 +151,17 @@ def build_index(fa_path: str, idx: str) -> float:
     return time.perf_counter() - t
 
 
-def route(K: int, E: int, report: dict) -> str:
+def route(stats: dict, J: int) -> str:
     """J, the tier ladder (f_search/f_extend, d: dimer rows, x: exact infix),
-    the dimer tier 0, and split or fused pipeline of a map's report."""
-    from genmap_tpu_torch.cli.map_cmd import default_overlap
-
-    st = report["stats"]
-    J = min(default_overlap(K, E), K - 1, K - E - 2) + 1
+    the dimer tier 0, and split or fused pipeline of an engine's last map
+    (its `stats`)."""
     ladder = " ".join(f"{i}:{t.f_search}/{t.f_extend}{'d' if t.dimer else ''}"
-                      f"{'x' if t.exact else ''}" for i, t in enumerate(st["tiers"]))
-    pipe = (f"split ({st['phase_a_batches']} phase-A, "
-            f"{sum(st['rung_batches'].values())} phase-B batches)"
-            if st["phase_a_batches"] else "fused")
-    return (f"J={J} ladder {ladder} dimer_tier={st['dimer_tier']} {pipe}; "
-            f"blocks per tier {st['tier_blocks']}, probe skipped {st['probe_skipped']}")
+                      f"{'x' if t.exact else ''}" for i, t in enumerate(stats["tiers"]))
+    pipe = (f"split ({stats['phase_a_batches']} phase-A, "
+            f"{sum(stats['rung_batches'].values())} phase-B batches)"
+            if stats["phase_a_batches"] else "fused")
+    return (f"J={J} ladder {ladder} dimer_tier={stats['dimer_tier']} {pipe}; "
+            f"blocks per tier {stats['tier_blocks']}, probe skipped {stats['probe_skipped']}")
 
 
 def map_config(idx: str, out: str, K: int, E: int, device: str) -> dict:
@@ -216,13 +213,16 @@ def compare(got_path: str, want_path: str) -> dict:
 
 
 def config_line(K: int, E: int, label: str, res: dict, counter_s: float, cmp: dict) -> str:
+    from genmap_tpu_torch.cli.map_cmd import default_overlap
+
     rep = res["report"]
+    J = min(default_overlap(K, E), K - 1, K - E - 2) + 1
     kps = rep["n_kmers"] / rep["compute_s"] if rep["compute_s"] else float("nan")
     diff = ("" if cmp["first_diff"] is None else
             "; first difference at line {}: port {!r}, counter {!r}".format(*cmp["first_diff"]))
     return (f"# ({K},{E}) {label}: map compute {rep['compute_s']:.3f} s, {kps:,.0f} k-mers/s "
             f"({rep['n_kmers']} k-mers), wall {res['wall']:.3f} s; route "
-            f"{route(K, E, rep)}; launches {res['launches']}; counter {counter_s:.1f} s; "
+            f"{route(rep['stats'], J)}; launches {res['launches']}; counter {counter_s:.1f} s; "
             f"bedgraph lines {cmp['lines'][0]} / {cmp['lines'][1]}, sha256 "
             f"{cmp['sha256'][0]} / {cmp['sha256'][1]}; byte-equal: {cmp['equal']}{diff}")
 

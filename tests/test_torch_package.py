@@ -36,6 +36,8 @@ _MODULES = (
     "genmap_tpu_torch.experiments.row_gather",
     "genmap_tpu_torch.engine.oracle",
     "genmap_tpu_torch.scripts.realistic_crosscheck",
+    "genmap_tpu_torch.scripts.hg38_demo",
+    "genmap_tpu_torch.scripts.build_probe",
 )
 
 
