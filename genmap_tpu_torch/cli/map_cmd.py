@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 
+from genmap_tpu_torch import tracing
 from genmap_tpu_torch.engine.mappability import MappabilityEngine, SearchParams
 from genmap_tpu_torch.index.fmindex import FMIndexData
 from genmap_tpu_torch.io.bed import read_bed3
@@ -47,11 +48,22 @@ def default_overlap(K: int, errors: int) -> int:
 
 
 def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
-    """Run `map`.  When `report` is given it receives the engine's stats,
-    the mapped k-mer count, the compute time, the device's resident bytes
-    and the engine's calibrated pools and extension schedules.  `mesh`
-    (parallel/mesh.py; a Python argument, as the JAX CLI has no mesh
-    option) maps on that mesh, every rank calling map_main alike."""
+    """Run `map`, in a `map.job` span.  When `report` is given it receives
+    the engine's stats, the mapped k-mer count, the compute time, the
+    device's resident bytes, the engine's calibrated pools and extension
+    schedules, and `trace`: what the job added to the tracer's totals
+    (`tracing.since`).  `mesh` (parallel/mesh.py; a Python argument, as the
+    JAX CLI has no mesh option) maps on that mesh, every rank calling
+    map_main alike."""
+    snap = tracing.snapshot()
+    with tracing.span("map.job"):
+        rc = _map(argv, report, mesh, snap)
+    if report is not None:
+        report["trace"] = tracing.since(snap)
+    return rc
+
+
+def _map(argv: list[str], report: dict | None, mesh, snap) -> int:
     p = argparse.ArgumentParser(prog="genmap-tpu-torch map", add_help=True)
     p.add_argument("-I", "--index", required=True)
     p.add_argument("-O", "--output", required=True)
@@ -114,7 +126,8 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
     mappability_out = not (args.frequency_small or args.frequency_large)
     cap = 255 if small else 65535
 
-    data = FMIndexData.load(args.index, mmap=args.memory_mapping)
+    with tracing.span("map.load_index"):
+        data = FMIndexData.load(args.index, mmap=args.memory_mapping)
     if args.verbose:
         print(f"Index was loaded (dna{data.alphabet_size} alphabet, "
               f"sampling rate of {data.sampling}).")
@@ -143,12 +156,13 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
               "       Please create it, or choose a different location.", file=sys.stderr)
         return 1
 
-    engine = MappabilityEngine(
-        data, batch_blocks=args.batch_blocks, batch_kmers=args.batch_kmers,
-        # SA samples / locate are only read by the CSV and exclude-pseudo
-        # paths; skipping their upload saves device memory
-        light=not (args.csv or args.exclude_pseudo), device=device, mesh=mesh,
-    )
+    with tracing.span("map.engine_init"):
+        engine = MappabilityEngine(
+            data, batch_blocks=args.batch_blocks, batch_kmers=args.batch_kmers,
+            # SA samples / locate are only read by the CSV and exclude-pseudo
+            # paths; skipping their upload saves device memory
+            light=not (args.csv or args.exclude_pseudo), device=device, mesh=mesh,
+        )
     params = SearchParams(
         length=K,
         overlap=overlap,
@@ -166,7 +180,6 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
         else:
             fasta_files[-1] = (fn, gi)
 
-    compute_s = 0.0
     n_kmers = 0
     compute_start = time.time()
     total_files = len(engine.layouts)
@@ -192,12 +205,11 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
             if not intervals:
                 continue  # skip files without any selected interval
 
-        t0 = time.perf_counter()
-        res = engine.compute_file(
-            layout, params, errors, cap, intervals=intervals, csv=args.csv,
-            file_no=file_no, total_files=total_files,
-        )
-        compute_s += time.perf_counter() - t0
+        with tracing.span("map.compute"):
+            res = engine.compute_file(
+                layout, params, errors, cap, intervals=intervals, csv=args.csv,
+                file_no=file_no, total_files=total_files,
+            )
         nk = max(0, layout.length - K + 1)
         if intervals is None:
             n_kmers += nk
@@ -212,11 +224,11 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
             path = out_path + base + ".genmap"
 
         def timed(label, fn, *a):
-            t0 = time.time()
-            fn(*a)
+            with tracing.span("map.write." + label.lower()) as sp:
+                fn(*a)
             if args.verbose:
                 print(f"- {label} file written in "
-                      f"{round((time.time() - t0) * 100.0) / 100.0} seconds")
+                      f"{round(sp.ns / 1e7) / 100.0} seconds")
 
         if args.raw:
             ext = ".map" if mappability_out else (".freq8" if small else ".freq16")
@@ -237,12 +249,16 @@ def map_main(argv: list[str], report: dict | None = None, mesh=None) -> int:
             timed("CSV", save_csv, path, res.locations, params.rev_compl,
                   fasta_files, csv_intervals)
     st = engine.stats
+    spans = tracing.since(snap)["spans"]
+    compute_s = spans.get("map.compute", {}).get("s", 0.0)
     if args.verbose:
         print("Mappability computed in "
               f"{round((time.time() - compute_start) * 100.0) / 100.0} seconds")
         print(f"- engine: {st['batches']} batches "
-              f"(dispatch {st['dispatch_s']:.2f}s, fetch {st['fetch_s']:.2f}s, "
-              f"scatter {st['scatter_s']:.2f}s), "
+              f"(dispatch {st['dispatch_s']:.2f}s, wait {st['fetch_s']:.2f}s, "
+              f"scatter {st['scatter_s']:.2f}s, "
+              f"dedup {tracing.seconds(spans, ['engine.dedup'], 'self_s'):.2f}s, "
+              f"orchestrator {tracing.seconds(spans, tracing.ORCHESTRATOR, 'self_s'):.2f}s), "
               f"{st['overflow_blocks']} blocks escalated "
               f"(max tier {st['max_tier']})")
     if report is not None:

@@ -31,12 +31,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from genmap_tpu_torch import tracing
 from genmap_tpu_torch.index.fmindex import FMIndexData
 from genmap_tpu_torch.ops.rank import DeviceText, locate, resolve_device
 from genmap_tpu_torch.parallel.mesh import replicate_index
@@ -182,15 +182,16 @@ class MappabilityEngine:
         self.tiers = tuple(tiers)
         self.mesh = mesh
         self.part_sharded = mesh is not None and "part" in mesh.axis_names
-        self.dtext = DeviceText.from_host(data, self.device)
-        if self.part_sharded:
-            from genmap_tpu_torch.parallel.partmesh import stack_parts
+        with tracing.span("engine.upload"):
+            self.dtext = DeviceText.from_host(data, self.device)
+            if self.part_sharded:
+                from genmap_tpu_torch.parallel.partmesh import stack_parts
 
-            self.indices = None
-            self.stacked = stack_parts(data, mesh, light=light, device=self.device)
-            self._part_locator = None
-        else:
-            self.indices = replicate_index(data, light, self.device)
+                self.indices = None
+                self.stacked = stack_parts(data, mesh, light=light, device=self.device)
+                self._part_locator = None
+            else:
+                self.indices = replicate_index(data, light, self.device)
         # blocks per rank: the batch splits evenly over the data axis
         self._mesh_data = 1 if mesh is None else mesh.shape["data"]
         self.batch_blocks = self._round(batch_blocks)
@@ -225,8 +226,11 @@ class MappabilityEngine:
         # record the routes and the split pipeline's blocks per (tier, rung,
         # exact, dimer) in stats["routes"] / stats["rung_sel"] (tests)
         self._record_tier_sel = False
-        # per-compute overflow/tier statistics + phase timers (device time
-        # lands in fetch_s: the result copy waits for the device)
+        # per-compute overflow/tier statistics; the phase timers and the
+        # batch count are the engine.dispatch / .fetch / .scatter span
+        # totals and the engine.batches counter of this engine's compute
+        # calls (device time lands in fetch_s: the result copy waits for
+        # the device)
         self.stats = {
             "overflow_blocks": 0, "max_tier": 0, "batches": 0,
             "dispatch_s": 0.0, "fetch_s": 0.0, "scatter_s": 0.0,
@@ -420,24 +424,33 @@ class MappabilityEngine:
         if len(starts) == 0:
             return FileResult(c=c, locations=locations, layout=layout)
 
+        snap = tracing.snapshot()
         progress = Progress(len(starts), file_no, total_files)
         done = False
         if self.dedup and intervals is None and not csv_needed and nkmers >= 8192:
-            # the dedup key pass is the only host-side reader of the text
-            text = self.data.decode_slice(layout.start, L)
-            done = self._compute_with_dedup(
-                text, c, locations, layout, starts, cnts, K, o, J, errors,
-                cap, params, progress, nkmers,
-            )
+            # the dedup key pass is the only host-side reader of the text;
+            # engine.dedup's self time is that pass
+            with tracing.span("engine.dedup"):
+                text = self.data.decode_slice(layout.start, L)
+                done = self._compute_with_dedup(
+                    text, c, locations, layout, starts, cnts, K, o, J, errors,
+                    cap, params, progress, nkmers,
+                )
         if not done:
             self._execute_blocks(c, locations, layout, starts, cnts, K, o, J,
                                  errors, cap, params, csv_needed, csv, progress)
         progress.finish()
         reset_limits(c, K, layout.cum_lens)
+        added = tracing.since(snap)
+        for key, name in (("dispatch_s", "engine.dispatch"), ("fetch_s", "engine.fetch"),
+                          ("scatter_s", "engine.scatter")):
+            self.stats[key] += added["spans"].get(name, {}).get("s", 0.0)
+        self.stats["batches"] += added["counters"].get("engine.batches", 0)
         return FileResult(c=c, locations=locations, layout=layout)
 
     # ------------------------------------------------------------------
 
+    @tracing.spanned("engine.blocks")
     def _execute_blocks(self, c, locations, layout, starts, cnts, K, o, J,
                         errors, cap, params, csv_needed, csv, progress=None,
                         collect_exact=None):
@@ -669,18 +682,19 @@ class MappabilityEngine:
                 if len(pending) == 0:
                     continue
             B = tier_B(t_i, len(pending), pools_over=tuned_i)
-            if use_split:
-                far_blocks, cap_blocks, unres = self._run_tier_split(
-                    job, t_i, tier, pending, B, tuned_i, start_tier, progress,
-                    dimer_esc,
-                )
-                if len(unres):
-                    unresolved_other.append(unres)
-            else:
-                far_blocks, cap_blocks = self._run_blocks(
-                    job, tier, pending, B, t_i,
-                    progress if t_i == start_tier else None, pools_list=tuned_i,
-                )
+            with tracing.span("engine.tier"):
+                if use_split:
+                    far_blocks, cap_blocks, unres = self._run_tier_split(
+                        job, t_i, tier, pending, B, tuned_i, start_tier, progress,
+                        dimer_esc,
+                    )
+                    if len(unres):
+                        unresolved_other.append(unres)
+                else:
+                    far_blocks, cap_blocks = self._run_blocks(
+                        job, tier, pending, B, t_i,
+                        progress if t_i == start_tier else None, pools_list=tuned_i,
+                    )
             if self._record_tier_sel:
                 routes = self.stats["routes"]
                 if len(far_blocks):
@@ -722,13 +736,15 @@ class MappabilityEngine:
                 cost, peak = block_cost(pristine)
                 B = self._round(max(8, min(B0, WORK // max(1, cost),
                                            SLOTS // max(1, peak), 1024)))
-                still += self._run_blocks(job, pristine, ids, B, last, None)
+                with tracing.span("engine.rescue"):
+                    still += self._run_blocks(job, pristine, ids, B, last, None)
             n_still = sum(len(a) for a in still)
             if n_still:
                 raise RuntimeError(
                     f"{n_still} blocks overflowed the largest frontier tier"
                 )
 
+    @tracing.spanned("engine.calibration")
     def _run_calibration(self, pending, cal_idx, job, tiers, plans, n_max,
                          block_cost, progress):
         """Occupancy calibration of the cohort `pending` at tier `cal_idx`
@@ -780,21 +796,18 @@ class MappabilityEngine:
         sel = pending[idx]
         runs = self._runners_for(K, errors, o, J, B_cal, meas_tier, job.cap,
                                  job.params.rev_compl, with_occ=True)
-        t0 = time.perf_counter()
-        outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B_cal)
-        self.stats["dispatch_s"] += time.perf_counter() - t0
-        self.stats["batches"] += 1
-        t0 = time.perf_counter()
-        outs = [{k: v.cpu().numpy() for k, v in out.items()} for out in outs]
-        self.stats["fetch_s"] += time.perf_counter() - t0
+        with tracing.span("engine.dispatch"):
+            outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B_cal)
+        tracing.count("engine.batches")
+        with tracing.span("engine.fetch"):
+            outs = [{k: v.cpu().numpy() for k, v in out.items()} for out in outs]
         nb = len(sel)
         ovf = np.zeros(nb, bool)
         for out in outs:
             ovf |= out["overflow"][:nb]
-        t0 = time.perf_counter()
-        self._scatter_batch(job.c, [out["hits"] for out in outs], job.cap,
-                            job.starts[sel], job.cnts[sel], ~ovf)
-        self.stats["scatter_s"] += time.perf_counter() - t0
+        with tracing.span("engine.scatter"):
+            self._scatter_batch(job.c, [out["hits"] for out in outs], job.cap,
+                                job.starts[sel], job.cnts[sel], ~ovf)
         P_ = len(plans)
         # upper clamp: the next tier's scale (beyond the next rung the
         # ladder handles it)
@@ -929,36 +942,36 @@ class MappabilityEngine:
         def dispatch_b(a_out, rows, gids, Fe, exact, dimer):
             B2 = b_batch_size(Fe)
             for s in range(0, len(rows), B2):
-                rs = np.asarray(rows[s : s + B2], np.int32)
-                gs = np.asarray(gids[s : s + B2])
-                n = len(rs)
-                # pow2-padded batches (the JAX package's program shapes)
-                npad = min(B2, 1 << int(np.ceil(np.log2(max(2, n)))))
-                ridx = np.zeros(npad, np.int32)
-                ridx[:n] = rs
-                gstarts = np.zeros(npad, np.uint32)
-                gstarts[:n] = (layout.start + starts[gs]).astype(np.uint32)
-                bcnts = np.zeros(npad, np.int32)
-                bcnts[:n] = cnts[gs]
-                # per-level extension schedule: the first big-enough batch
-                # of a rung measures per-level demand; later batches run a
-                # decayed frontier schedule (demand shrinks down the tree)
-                skey = (K, errors, o, Fe, exact, dimer)
-                entry = self._ext_sched.get(skey)
-                sched = entry if isinstance(entry, tuple) else None
-                measure = (entry is None and Fe >= 64 and Fe < self._RUNGS[-1]
-                           and n >= 32)
-                if measure:
-                    self._ext_sched[skey] = "measuring"
-                run_b = self._extender(K, errors, o, J, npad, Fe, cap, rev_compl,
-                                       exact, dimer=dimer, fe_sched=sched,
-                                       with_occ=measure)
-                t0 = time.perf_counter()
-                out = run_b(torch.from_numpy(gstarts.view(np.int32)).to(dev),
-                            torch.from_numpy(bcnts).to(dev), limit,
-                            (a_out["st"], a_out["valid"]),
-                            torch.from_numpy(ridx).to(dev), n)
-                stats["dispatch_s"] += time.perf_counter() - t0
+                with tracing.span("engine.prep"):
+                    rs = np.asarray(rows[s : s + B2], np.int32)
+                    gs = np.asarray(gids[s : s + B2])
+                    n = len(rs)
+                    # pow2-padded batches (the JAX package's program shapes)
+                    npad = min(B2, 1 << int(np.ceil(np.log2(max(2, n)))))
+                    ridx = np.zeros(npad, np.int32)
+                    ridx[:n] = rs
+                    gstarts = np.zeros(npad, np.uint32)
+                    gstarts[:n] = (layout.start + starts[gs]).astype(np.uint32)
+                    bcnts = np.zeros(npad, np.int32)
+                    bcnts[:n] = cnts[gs]
+                    # per-level extension schedule: the first big-enough batch
+                    # of a rung measures per-level demand; later batches run a
+                    # decayed frontier schedule (demand shrinks down the tree)
+                    skey = (K, errors, o, Fe, exact, dimer)
+                    entry = self._ext_sched.get(skey)
+                    sched = entry if isinstance(entry, tuple) else None
+                    measure = (entry is None and Fe >= 64 and Fe < self._RUNGS[-1]
+                               and n >= 32)
+                    if measure:
+                        self._ext_sched[skey] = "measuring"
+                    run_b = self._extender(K, errors, o, J, npad, Fe, cap, rev_compl,
+                                           exact, dimer=dimer, fe_sched=sched,
+                                           with_occ=measure)
+                with tracing.span("engine.dispatch"):
+                    out = run_b(torch.from_numpy(gstarts.view(np.int32)).to(dev),
+                                torch.from_numpy(bcnts).to(dev), limit,
+                                (a_out["st"], a_out["valid"]),
+                                torch.from_numpy(ridx).to(dev), n)
                 inflight_b.append((gs, a_out, rs, Fe, exact, dimer, out, measure))
                 rkey = (t_i, Fe, exact, dimer)
                 stats["rung_batches"][rkey] = stats["rung_batches"].get(rkey, 0) + 1
@@ -969,11 +982,10 @@ class MappabilityEngine:
         def drain_b(one):
             while inflight_b and (len(inflight_b) >= 4 or one):
                 gs, a_out, rs, Fe, exact, dimer, out, measure = inflight_b.pop(0)
-                t0 = time.perf_counter()
-                hits = out["hits"].cpu().numpy()
-                ovf = out["overflow"].cpu().numpy()
-                ovfc = out["overflow_cap"].cpu().numpy()
-                stats["fetch_s"] += time.perf_counter() - t0
+                with tracing.span("engine.fetch"):
+                    hits = out["hits"].cpu().numpy()
+                    ovf = out["overflow"].cpu().numpy()
+                    ovfc = out["overflow_cap"].cpu().numpy()
                 n = len(gs)
                 ok = ~ovf[:n]
                 if measure:
@@ -995,12 +1007,11 @@ class MappabilityEngine:
                             self._ext_sched[skey] = "flat"
                     else:
                         self._ext_sched[skey] = "flat"
-                t0 = time.perf_counter()
-                for i in np.nonzero(ok)[0]:
-                    i0 = int(starts[gs[i]])
-                    cnt_i = int(cnts[gs[i]])
-                    c[i0 : i0 + cnt_i] = hits[i, :cnt_i]
-                stats["scatter_s"] += time.perf_counter() - t0
+                with tracing.span("engine.scatter"):
+                    for i in np.nonzero(ok)[0]:
+                        i0 = int(starts[gs[i]])
+                        cnt_i = int(cnts[gs[i]])
+                        c[i0 : i0 + cnt_i] = hits[i, :cnt_i]
                 bad = np.nonzero(~ok)[0]
                 if len(bad):
                     capb = ovfc[:n][bad]
@@ -1028,11 +1039,10 @@ class MappabilityEngine:
             while inflight_a and (len(inflight_a) >= 8 or one):
                 sel, a_out = inflight_a.pop(0)
                 nb = len(sel)
-                t0 = time.perf_counter()
-                surv = a_out["surv"].cpu().numpy()[:nb]
-                ovf = a_out["overflow"].cpu().numpy()[:nb]
-                ovfc = a_out["overflow_cap"].cpu().numpy()[:nb]
-                stats["fetch_s"] += time.perf_counter() - t0
+                with tracing.span("engine.fetch"):
+                    surv = a_out["surv"].cpu().numpy()[:nb]
+                    ovf = a_out["overflow"].cpu().numpy()[:nb]
+                    ovfc = a_out["overflow_cap"].cpu().numpy()[:nb]
                 stats["overflow_blocks"] += int(ovf.sum())
                 stats["max_tier"] = max(stats["max_tier"], t_i)
                 tb = stats["tier_blocks"]
@@ -1063,10 +1073,9 @@ class MappabilityEngine:
 
         for s in range(0, len(pending), B):
             sel = pending[s : s + B]
-            t0 = time.perf_counter()
-            outs = self._run_batch([arun], layout, starts[sel], cnts[sel], B)
-            stats["dispatch_s"] += time.perf_counter() - t0
-            stats["batches"] += 1
+            with tracing.span("engine.dispatch"):
+                outs = self._run_batch([arun], layout, starts[sel], cnts[sel], B)
+            tracing.count("engine.batches")
             stats["phase_a_batches"] += 1
             inflight_a.append((sel, outs[0]))
             drain_a(False)
@@ -1077,6 +1086,7 @@ class MappabilityEngine:
         cat = lambda xs: np.concatenate(xs) if xs else np.empty(0, np.int64)  # noqa: E731
         return cat(still_far), cat(still_cap), cat(unresolved)
 
+    @tracing.spanned("engine.probe")
     def _probe(self, job, pending, tier0, probe_cut, Bp, progress):
         """Probe `pending` in batches of Bp at tier0: skipped blocks get
         frequency 1 written; returns (residual block ids, abandoned).  After
@@ -1098,26 +1108,23 @@ class MappabilityEngine:
             if abandoned:
                 residual.append(sel)
                 continue
-            t0 = time.perf_counter()
-            out = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], Bp)
-            t1 = time.perf_counter()
-            skip = out["skip"].cpu().numpy()[: len(sel)].astype(bool)
-            t2 = time.perf_counter()
-            # vectorized frequency-1 writes
-            idx = np.nonzero(skip)[0]
-            bst = job.starts[sel[idx]]
-            bcn = job.cnts[sel[idx]]
-            full = bcn == J
-            if full.any():
-                job.c[(bst[full][:, None] + np.arange(J)).ravel()] = 1
-            for s0, cn in zip(bst[~full], bcn[~full]):
-                job.c[int(s0) : int(s0) + int(cn)] = 1
-            residual.append(sel[~skip])
-            skipped += len(idx)
-            stats["dispatch_s"] += t1 - t0
-            stats["fetch_s"] += t2 - t1
-            stats["scatter_s"] += time.perf_counter() - t2
-            stats["batches"] += 1
+            with tracing.span("engine.dispatch"):
+                out = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], Bp)
+            with tracing.span("engine.fetch"):
+                skip = out["skip"].cpu().numpy()[: len(sel)].astype(bool)
+            with tracing.span("engine.scatter"):
+                # vectorized frequency-1 writes
+                idx = np.nonzero(skip)[0]
+                bst = job.starts[sel[idx]]
+                bcn = job.cnts[sel[idx]]
+                full = bcn == J
+                if full.any():
+                    job.c[(bst[full][:, None] + np.arange(J)).ravel()] = 1
+                for s0, cn in zip(bst[~full], bcn[~full]):
+                    job.c[int(s0) : int(s0) + int(cn)] = 1
+                residual.append(sel[~skip])
+                skipped += len(idx)
+            tracing.count("engine.batches")
             if progress is not None:
                 progress.add(len(idx))
             if s == 0 and skip.mean() < 0.3:
@@ -1143,51 +1150,48 @@ class MappabilityEngine:
         for s in range(0, len(ids), B):
             sel = ids[s : s + B]
             nb = len(sel)
-            t0 = time.perf_counter()
-            outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B)
-            t1 = time.perf_counter()
-            outs = self._expand_part_outs(
-                [{k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
-                      else v.cpu().numpy())
-                  for k, v in out.items()}
-                 for out in outs])
-            t2 = time.perf_counter()
-            ovf = np.zeros(nb, bool)
-            ovfc = np.zeros(nb, bool)
-            for res in outs:
-                ovf |= res["overflow"][:nb]
-                ovfc |= res["overflow_cap"][:nb]
-                for k in ("exact_size", "exact_size_total", "exact_flo"):
-                    if k in res:
-                        res[k] = res[k].view(np.uint32)
-            bstarts, bcnts = job.starts[sel], job.cnts[sel]
-            self._scatter_batch(job.c, [res["hits"] for res in outs], job.cap,
-                                bstarts, bcnts, ~ovf)
-            if job.csv_needed:
-                per_part = []
+            with tracing.span("engine.dispatch"):
+                outs = self._run_batch(runs, job.layout, job.starts[sel], job.cnts[sel], B)
+            with tracing.span("engine.fetch"):
+                outs = self._expand_part_outs(
+                    [{k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple)
+                          else v.cpu().numpy())
+                      for k, v in out.items()}
+                     for out in outs])
+            with tracing.span("engine.scatter"):
+                ovf = np.zeros(nb, bool)
+                ovfc = np.zeros(nb, bool)
                 for res in outs:
-                    flo, size, err, valid = res["states"]
-                    per_part.append((res["exact_size_total"], res["exact_flo"],
-                                     (flo.view(np.uint32), size.view(np.uint32),
-                                      err, valid.astype(bool))))
-                exact_size = sum(res["exact_size"].astype(np.int64) for res in outs)
-                self._csv_batch(
-                    job.c, job.locations, bstarts, bcnts, ~ovf, per_part,
-                    exact_size, job.layout, job.params, job.K, job.errors,
-                    job.cap, job.csv,
-                )
-            if job.collect_exact is not None:
-                E_flo, E_size = job.collect_exact
-                for pi, res in enumerate(outs):
-                    for bi in np.nonzero(~ovf)[0]:
-                        s0 = int(bstarts[bi])
-                        cnt = int(bcnts[bi])
-                        E_flo[pi][s0 : s0 + cnt] = res["exact_flo"][bi, :cnt]
-                        E_size[pi][s0 : s0 + cnt] = res["exact_size_total"][bi, :cnt]
-            stats["dispatch_s"] += t1 - t0
-            stats["fetch_s"] += t2 - t1
-            stats["scatter_s"] += time.perf_counter() - t2
-            stats["batches"] += 1
+                    ovf |= res["overflow"][:nb]
+                    ovfc |= res["overflow_cap"][:nb]
+                    for k in ("exact_size", "exact_size_total", "exact_flo"):
+                        if k in res:
+                            res[k] = res[k].view(np.uint32)
+                bstarts, bcnts = job.starts[sel], job.cnts[sel]
+                self._scatter_batch(job.c, [res["hits"] for res in outs], job.cap,
+                                    bstarts, bcnts, ~ovf)
+                if job.csv_needed:
+                    per_part = []
+                    for res in outs:
+                        flo, size, err, valid = res["states"]
+                        per_part.append((res["exact_size_total"], res["exact_flo"],
+                                         (flo.view(np.uint32), size.view(np.uint32),
+                                          err, valid.astype(bool))))
+                    exact_size = sum(res["exact_size"].astype(np.int64) for res in outs)
+                    self._csv_batch(
+                        job.c, job.locations, bstarts, bcnts, ~ovf, per_part,
+                        exact_size, job.layout, job.params, job.K, job.errors,
+                        job.cap, job.csv,
+                    )
+                if job.collect_exact is not None:
+                    E_flo, E_size = job.collect_exact
+                    for pi, res in enumerate(outs):
+                        for bi in np.nonzero(~ovf)[0]:
+                            s0 = int(bstarts[bi])
+                            cnt = int(bcnts[bi])
+                            E_flo[pi][s0 : s0 + cnt] = res["exact_flo"][bi, :cnt]
+                            E_size[pi][s0 : s0 + cnt] = res["exact_size_total"][bi, :cnt]
+            tracing.count("engine.batches")
             stats["overflow_blocks"] += int(ovf.sum())
             stats["max_tier"] = max(stats["max_tier"], t_i)
             tb = stats["tier_blocks"]

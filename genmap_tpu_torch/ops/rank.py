@@ -525,10 +525,11 @@ def with_seed_tables(index: DeviceIndex, t0: int | None = None) -> DeviceIndex:
     kernel; on the CPU the level loop of the exact candidate step).  `t0`
     overrides the depth (the parts of a part mesh share the smallest).
     """
-    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch import kernels, tracing
 
     t0 = seed_depth(index.n_total) if t0 is None else t0
-    seed_mlo, seed_size = kernels.seed_build(index, t0)
+    with tracing.span("engine.seed_tables"):
+        seed_mlo, seed_size = kernels.seed_build(index, t0)
     return replace(index, seed_mlo=seed_mlo, seed_size=seed_size, seed_t0=t0)
 
 

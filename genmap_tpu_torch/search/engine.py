@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from genmap_tpu_torch import kernels
+from genmap_tpu_torch import kernels, tracing
 from genmap_tpu_torch.ops.rank import (
     DeviceIndex,
     DeviceText,
@@ -846,26 +846,29 @@ class BlockMapper:
         return out if self.probe and not last else fetch(out, self.mesh)
 
     def _run(self, starts, cnt, limit, acc=None, last: bool = True):
-        """The batch on this device alone."""
+        """The batch on this device alone (each phase in a mapper.* span)."""
         B = starts.shape[0]
-        needles = extract_needles(self.dtext, starts, self.Ln, limit)
-        if self.tier.dimer:
-            (s_st, s_valid), cap1, far1, *occ = _search_infix_dimer(
-                self.index, self.sched, self.dsched, needles, B, self.n_total,
-                self.with_occ,
-            )
-        else:
-            (s_st, s_valid), cap1, far1, *occ = _search_infix(
-                self.index, self.sched, needles, B, self.tier, self.n_total,
-                self.exact_steps, self.pools,
-                stop_at=self.probe_cut if self.probe else None,
-                with_occ=self.with_occ,
-            )
+        with tracing.span("mapper.needles"):
+            needles = extract_needles(self.dtext, starts, self.Ln, limit)
+        with tracing.span("mapper.infix"):
+            if self.tier.dimer:
+                (s_st, s_valid), cap1, far1, *occ = _search_infix_dimer(
+                    self.index, self.sched, self.dsched, needles, B, self.n_total,
+                    self.with_occ,
+                )
+            else:
+                (s_st, s_valid), cap1, far1, *occ = _search_infix(
+                    self.index, self.sched, needles, B, self.tier, self.n_total,
+                    self.exact_steps, self.pools,
+                    stop_at=self.probe_cut if self.probe else None,
+                    with_occ=self.with_occ,
+                )
         if self.probe:
-            ovf = (cap1 | far1).to(torch.uint8)
-            res = kernels.probe_mass(s_st, s_valid, ovf, needles, self.thr,
-                                     self.index.has_n, self.probe_mass,
-                                     acc=acc, last=last)
+            with tracing.span("mapper.probe"):
+                ovf = (cap1 | far1).to(torch.uint8)
+                res = kernels.probe_mass(s_st, s_valid, ovf, needles, self.thr,
+                                         self.index.has_n, self.probe_mass,
+                                         acc=acc, last=last)
             if not last:
                 return dict(acc=res)
             if not self.probe_mass:
@@ -875,15 +878,18 @@ class BlockMapper:
         if self.collect_only:
             # phase A: survivors packed at native width (no overflow: they
             # already fit it), the pack's count is the survivor count
-            st, valid, _, surv = _compact(s_st[:4], s_valid, s_st.shape[-1], count=True)
-            return dict(st=st, valid=valid, surv=_u16(surv),
-                        overflow=cap1 | far1, overflow_cap=cap1)
-        states, cap2, far2 = _extend_to_kmers(
-            self.index, (s_st, s_valid), needles, self.levels, B, self.tier
-        )
+            with tracing.span("mapper.pack"):
+                st, valid, _, surv = _compact(s_st[:4], s_valid, s_st.shape[-1], count=True)
+                return dict(st=st, valid=valid, surv=_u16(surv),
+                            overflow=cap1 | far1, overflow_cap=cap1)
+        with tracing.span("mapper.extend"):
+            states, cap2, far2 = _extend_to_kmers(
+                self.index, (s_st, s_valid), needles, self.levels, B, self.tier
+            )
         exact = self.with_exact or self.with_states
-        res = _count_tail(self.index, states, cnt, self.J, self.cap,
-                          self.rev_compl, exact)
+        with tracing.span("mapper.count"):
+            res = _count_tail(self.index, states, cnt, self.J, self.cap,
+                              self.rev_compl, exact)
         out = dict(
             hits=res[0] if exact else res,
             overflow=cap1 | far1 | cap2 | far2,
@@ -940,13 +946,17 @@ class Extender:
 
     def __call__(self, starts, cnt, limit, phase_a, ridx, n: int):
         B = starts.shape[0]
-        states = kernels.gather_states(phase_a[0], phase_a[1], ridx, n, self.Fe)
-        needles = extract_needles(self.dtext, starts, self.Ln, limit)
-        final, cap2, far2, *occ = _extend_to_kmers(
-            self.index, states, needles, self.levels, B, self.tier,
-            self.fe_sched, self.with_occ,
-        )
-        hits = _count_tail(self.index, final, cnt, self.J, self.cap, self.rev_compl)
+        with tracing.span("mapper.gather"):
+            states = kernels.gather_states(phase_a[0], phase_a[1], ridx, n, self.Fe)
+        with tracing.span("mapper.needles"):
+            needles = extract_needles(self.dtext, starts, self.Ln, limit)
+        with tracing.span("mapper.extend"):
+            final, cap2, far2, *occ = _extend_to_kmers(
+                self.index, states, needles, self.levels, B, self.tier,
+                self.fe_sched, self.with_occ,
+            )
+        with tracing.span("mapper.count"):
+            hits = _count_tail(self.index, final, cnt, self.J, self.cap, self.rev_compl)
         out = dict(hits=hits, overflow=cap2 | far2, overflow_cap=cap2)
         if self.with_occ:
             out["ext_occ"] = occ[0]

@@ -26,6 +26,7 @@ _MODULES = (
     "genmap_tpu_torch.engine.mappability",
     "genmap_tpu_torch.search.engine",
     "genmap_tpu_torch.kernels",
+    "genmap_tpu_torch.tracing",
     "genmap_tpu_torch.ops.rank",
     "genmap_tpu_torch.index.fmindex",
     "genmap_tpu_torch.io.writers",
