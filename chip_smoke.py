@@ -146,9 +146,10 @@ counters start after mesh1 and run beside the check phase:
              (every lanes value, 0 included) against its plain version; the
              read rates of candidate_step and dimer_step beside the sweep's
  14. kernels the largest checked call of each kernel (and of each
-             candidate_step and dimer_step variant, of compact's short-row,
-             long-row and counting calls, of count_tail at Fe = 1 and with
-             the zero-error outputs) is timed on the card (kernel, plain
+             candidate_step and dimer_step variant, of extend_level on each
+             row kind and rank mode, of compact's short-row, long-row and
+             counting calls, of count_tail at Fe = 1 and with the
+             zero-error outputs) is timed on the card (kernel, plain
              version, library call where one exists) beside its bound and
              the launch floor (one empty kernel timed the same way), and
              locate beside a chain yardstick (the rowgather phase's
@@ -166,7 +167,7 @@ under the kernel's output contract (`kernels.candidate_step_view`,
 contract defines, and the compaction of out by valid2); every other
 kernel's outputs in full.
 
-Output: `{"kernels": [...]}` (eleven kernels), the card's name and power
+Output: `{"kernels": [...]}` (twelve kernels), the card's name and power
 limit (nvidia-smi), and last `{"ok": true, "device": {...}}`.
 """
 
@@ -201,11 +202,11 @@ B_DNA5 = 1024  # blocks in phase 2's (100,2) batch
 TIMED_RUNS = 3
 NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
          "probe_mass", "locate", "dimer_step", "seed_lookup", "gather_states",
-         "seed_build")
+         "seed_build", "extend_level")
 # the kernels of the whole-genome map (no CSV; seed_build at the index upload)
 MAIN_NAMES = ("extract_needles", "candidate_step", "compact", "count_tail",
               "probe_mass", "dimer_step", "seed_lookup", "gather_states",
-              "seed_build")
+              "seed_build", "extend_level")
 EP_BP = 230218 + 813184 + 316620  # chrI-chrIII
 DEDUP_CHROMS = 4  # chrI-chrIV
 MP_CHROMS = 7  # chrI-chrVII, the multi-part phase's genome
@@ -417,6 +418,9 @@ def timing_keys(name, args) -> list:
         return [name, f"{name}+A={args['index'].nchars},"
                       f"{'exact' if args['exact'] else 'fast'},"
                       f"mono={args['with_mono']},pass={args['with_pass']}"]
+    if name == "extend_level":  # row kind, rank mode
+        return [name, f"{name}+{'dimer' if args['dimer'] else 'mono'},"
+                      f"{'exact' if args['exact'] else 'fast'}"]
     return [name]
 
 
@@ -458,6 +462,10 @@ def variant(name, args) -> str:
         return f"A={args['index'].nchars} sampling={args['index'].sampling}"
     if name == "seed_build":
         return f"A={args['index'].nchars} t0={args['t0']}"
+    if name == "extend_level":
+        return (f"{'dimer' if args['dimer'] else 'mono'} A={args['index'].nchars} "
+                f"{'exact' if args['exact'] else 'fast'} widths={list(args['widths'])} "
+                f"occ={bool(args.get('with_occ'))}")
     N = args["valid"].numel()
     return (f"Fe={N // (args['cnt'].numel() * args['J'])} rc={args['rev_compl']} "
             f"exact={bool(args.get('with_exact'))}")
@@ -577,6 +585,8 @@ def kernel_work(name, args):
         return dimer_work(args)
     if name == "seed_build":
         return seed_build_work(args)
+    if name == "extend_level":
+        return extend_level_work(args)
     cnt, J = args["cnt"], args["J"]
     N = args["valid"].numel()
     v = args["valid"].bool()
@@ -710,6 +720,94 @@ def dimer_work(args):
     return (nbytes, nops, f"N={N} states ({nwork} valid, consuming) R={R} "
             f"A={ix.nchars} {mode} mono={args['with_mono']} pass={args['with_pass']}, "
             f"{n_reads} dimer sub-row reads of {n_subs} distinct sub-rows", n_reads)
+
+
+def extend_level_work(args):
+    """(bytes, operations, shape, row reads) of one extend_level call: what
+    the levels' data need of device memory, the frontiers staying on chip
+    between the steps of a level.  Read: the validity of every parent row
+    the first level takes and the states its cuts keep (once a parent row),
+    the levels' tables, the needle characters of every consuming (block,
+    node, step), and per step the distinct rank sub-rows of the working
+    states (as candidate_step's and dimer_step's counts address them);
+    between two levels the packed frontiers and their counts written and
+    read once; written: the last level's frontiers and validity, the flags
+    and occupancy.  Operations: per working state the step kernels'
+    counts, and ~6 per candidate slot for the compaction.  The steps are
+    replayed with the plain versions to find each step's working states."""
+    import torch
+
+    from genmap_tpu_torch import kernels
+    from genmap_tpu_torch.index.fmindex import sub_width
+    from genmap_tpu_torch.ops import rank
+
+    ix, st, valid, needles = args["index"], args["st"], args["valid"], args["needles"]
+    dimer, exact = args["dimer"], args["exact"]
+    _R, B, _Mp, Fp = st.shape
+    A = ix.nchars
+    slots = kernels.DIMER_SLOTS if dimer else A
+    per_state = 2 * 420 + 16 * 20 if dimer else 2 * (32 * 10 + 2 * 16 * 4) + 20 * A
+    nbytes = nops = n_reads = 0
+    x, v = st, valid
+    levels = list(zip(args["pmaps"], args["tabs"], args["widths"]))
+    for li, (pmap, tab, Fe) in enumerate(levels):
+        M, T = pmap.numel(), tab.shape[1]
+        Fp = x.shape[-1]
+        p = pmap.to(torch.int64)
+        kept = v[:, torch.unique(p)].bool().sum(dim=-1).clamp(max=Fe)
+        if li == 0:  # the caller's frontiers: validity and the kept states
+            nbytes += B * torch.unique(p).numel() * Fp + 16 * int(kept.sum())
+        else:  # the packed frontiers and counts, written and read once
+            nbytes += 2 * (16 * int(kept.sum()) + 4 * B * torch.unique(p).numel())
+        nbytes += 4 * (tab.numel() + M)
+        x, v, _ = kernels.compact_plain(x[:, :, p].reshape(4, B * M, Fp),
+                                        v[:, p].reshape(B * M, Fp), Fe)
+        u = torch.full((M,), args["errors"], dtype=torch.int32, device=st.device)
+        zero = torch.zeros_like(u)
+        pos = tab[2:].to(torch.int64)
+        for t in range(T):
+            cons = tab[0, t]
+            xs = x.view(4, B, M, Fe)
+            work = v.view(B, M, Fe).bool() & (cons > 0)[None, :, None]
+            nwork = int(work.sum())
+            right = tab[1, t].bool()[None, :, None].expand(B, M, Fe)[work]
+            mlo = torch.where(right, rank.u32(xs[1][work]), rank.u32(xs[0][work]))
+            hi = (mlo + rank.u32(xs[2][work])) & rank.MASK32
+            if dimer:  # dimer_work's sub-rows
+                q = mlo >> 7
+                subs = torch.cat([q, hi >> 7] if exact else [q, (q + 1)[(hi >> 7) > q]])
+                row_bytes = 26 * 4
+            else:  # candidate_step's addresses
+                q = mlo >> 9
+                subs = torch.cat([q * 2, (hi >> 9) * 2] if exact
+                                 else [q * 2, (q * 2 + 1)[(hi >> 9) > q]])
+                row_bytes = sub_width(ix.has_n) * 4
+            n_reads += int(subs.numel())
+            nbytes += int(torch.unique(subs).numel()) * row_bytes
+            nbytes += B * int((cons > 0).sum() + (cons == 2).sum())  # needle characters
+            nops += nwork * (per_state + 6 * slots)
+            step = dict(per_block=M * Fe, inner=Fe, right=tab[1, t].to(torch.uint8),
+                        exact=exact)
+            if dimer:
+                kinds = set(cons.tolist())
+                out, valid2, _f = kernels.dimer_step_plain(
+                    ix, x.reshape(4, -1), v.reshape(-1), consume=cons.to(torch.uint8),
+                    u_mid=u, u_end=u, l_mid=zero, l_end=zero, nchA=needles[:, pos[0, t]],
+                    nchB=needles[:, pos[1, t]], with_mono=1 in kinds, with_pass=0 in kinds,
+                    **step)
+            else:
+                out, valid2, _f = kernels.candidate_step_plain(
+                    ix, x.reshape(4, -1), v.reshape(-1), nch=needles[:, pos[0, t]],
+                    act=cons.to(torch.uint8), u=u, lreq=zero, **step)
+            x, v, _of = kernels.compact_plain(out.reshape(4, B * M, -1),
+                                              valid2.reshape(B * M, -1), Fe)
+        x, v = x.view(4, B, M, Fe), v.view(B, M, Fe)
+    M, Fe = x.shape[2], x.shape[3]
+    nbytes += B * M * Fe * 17 + 2 * B + (4 * B * len(levels) if args.get("with_occ") else 0)
+    kind = "dimer" if dimer else "mono"
+    return (nbytes, nops, f"B={B} levels={len(levels)} widths={list(args['widths'])} "
+            f"{kind} A={A} {'exact' if exact else 'fast'}, {n_reads} sub-row reads",
+            n_reads)
 
 
 def locate_walk(index, pos, valid):

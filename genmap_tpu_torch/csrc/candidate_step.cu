@@ -51,6 +51,9 @@
 // calls (its warps' strides aligned with the frontier's rows, so that a
 // few warps got every working tile).
 
+// A state's step (cs_state and its rank helpers) is in genmap.cuh, shared
+// with extend_level.cu.
+//
 // Layouts: st [R, N] (flo, rlo, size, err[, plan]); out [R, N, A];
 // valid2 [N, A]; far [N].  State i is in block i / per_block; its group is
 // st[4][i] when R == 5 (search plan) or (i % per_block) / inner (tree node).
@@ -75,129 +78,6 @@
 #define CS_WAVES 4
 #endif
 
-// One bound's words as lane j of an L-lane group reads them from the
-// sub-row `sub` (offset `off`): `codes` packs the lane's counts of code 0,
-// <= 1, <= 2 before off in 10-bit fields, `sn` its sentinels and Ns in
-// 16-bit fields (each sum over the group is at most 511); every lane also
-// holds the sub-row's absolute counts.  The word loop is unrolled with a
-// guard per word: a runtime-bounded loop measured slower on the H100, and
-// loading 8 or all of a lane's words before using any took 96-128
-// registers and was slower again (`chip_ab.py --kernels`).
-struct CsBound {
-  uint32_t codes, sn, le0, le1, le2, scnt, ncnt;
-};
-
-template <int L>
-__device__ __forceinline__ CsBound cs_part(const uint32_t* __restrict__ sub, int off,
-                                           int has_n, int j) {
-  CsBound b;
-  b.le0 = sub[GM_S_LE + 0];
-  b.le1 = sub[GM_S_LE + 1];
-  b.le2 = sub[GM_S_LE + 2];
-  b.scnt = sub[GM_S_SCNT];
-  b.ncnt = has_n ? sub[GM_S_NCNT] : 0u;
-  const int nw = (off + 15) >> 4;  // code words holding fields < off
-  uint32_t l0 = 0, l1 = 0, l2 = 0;
-#pragma unroll
-  for (int m = 0; m < GM_SUBWORDS / L; ++m) {
-    const int k = j + m * L;
-    if (k < nw) {
-      const uint32_t w = sub[k];
-      const uint32_t hi = w >> 1;
-      const uint32_t msk = gm_field_mask(off, k) & 0x55555555u;
-      l0 += __popc(~(w | hi) & msk);
-      l1 += __popc(~hi & msk);
-      l2 += __popc(~(hi & w) & msk);
-    }
-  }
-  const int nb = (off + 31) >> 5;  // bitvector words holding bits < off
-  uint32_t s = 0, nc = 0;
-#pragma unroll
-  for (int m = 0; m < (16 + L - 1) / L; ++m) {
-    const int k = j + m * L;
-    if (k < nb) {
-      const uint32_t bm = gm_bit_mask(off, k);
-      s += __popc(sub[GM_S_SBITS + k] & bm);
-      if (has_n) nc += __popc(sub[GM_S_NBITS + k] & bm);
-    }
-  }
-  b.codes = l0 | (l1 << 10) | (l2 << 20);
-  b.sn = s | (nc << 16);
-  return b;
-}
-
-// Sums the partial counts over each L-lane group of the warp.
-template <int L>
-__device__ __forceinline__ void cs_reduce(CsBound& b) {
-#pragma unroll
-  for (int o = L / 2; o > 0; o >>= 1) {
-    b.codes += __shfl_xor_sync(CS_FULL, b.codes, o);
-    b.sn += __shfl_xor_sync(CS_FULL, b.sn, o);
-  }
-}
-
-// occ / sentinel count before p from a bound's summed counts (the
-// arithmetic of ops/rank.py _occ_sub).
-__device__ __forceinline__ void cs_occ(const CsBound& b, uint32_t p, uint32_t occ[5],
-                                       uint32_t* sent) {
-  const uint32_t s = b.scnt + (b.sn & 0xFFFFu);
-  const uint32_t nc = b.ncnt + (b.sn >> 16);
-  const uint32_t le0 = b.le0 + (b.codes & 1023u) - s - nc;
-  const uint32_t le1 = b.le1 + ((b.codes >> 10) & 1023u) - s - nc;
-  const uint32_t le2 = b.le2 + (b.codes >> 20) - s - nc;
-  const uint32_t le3 = p - s - nc;
-  occ[0] = le0;
-  occ[1] = le1 - le0;
-  occ[2] = le2 - le1;
-  occ[3] = le3 - le2;
-  occ[4] = nc;
-  *sent = s;
-}
-
-// The FMD tail of one working state from its two bounds' counts: val[r][c]
-// is output row r of candidate c; returns the valid2 bits (far in bit 7).
-__device__ __forceinline__ uint32_t cs_tail(const uint32_t* __restrict__ C, int A,
-                                            const uint32_t occ_lo[5],
-                                            const uint32_t occ_hi[5], uint32_t s_lo,
-                                            uint32_t s_hi, uint32_t olo, uint32_t rn,
-                                            int32_t err, int g, int32_t u, int32_t lreq,
-                                            bool far, int32_t val[5][5]) {
-  // descended-char intervals and companion offsets
-  uint32_t nmlo[5], nsize[5], nolo[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    nmlo[c] = C[c < A ? c : 0] + occ_lo[c];
-    nsize[c] = occ_hi[c] - occ_lo[c];
-  }
-  const uint32_t sent_sl = s_hi - s_lo;
-  const uint32_t o2 = nsize[3];
-  const uint32_t o1 = o2 + nsize[2];
-  const uint32_t o0 = o1 + nsize[1];
-  nolo[0] = olo + sent_sl + o0;
-  nolo[1] = olo + sent_sl + o1;
-  nolo[2] = olo + sent_sl + o2;
-  nolo[3] = olo + sent_sl;
-  nolo[4] = olo + sent_sl + o0 + nsize[0];
-  const bool right = (rn & 1u) != 0;
-  const int nch = (int)(rn >> 8);
-  uint32_t res = far ? 0x80u : 0u;
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    // right steps read the complement-permuted results (N maps to itself);
-    // both indices are constants, so the arrays stay in registers
-    const int cc = c == 4 ? 4 : 3 - c;
-    const int32_t e2 = err + ((c != nch || nch == 4) ? 1 : 0);
-    const uint32_t sz = right ? nsize[cc] : nsize[c];
-    val[0][c] = (int32_t)(right ? nolo[cc] : nmlo[c]);
-    val[1][c] = (int32_t)(right ? nmlo[cc] : nolo[c]);
-    val[2][c] = (int32_t)sz;
-    val[3][c] = e2;
-    val[4][c] = g;
-    if (c < A && e2 <= u && e2 >= lreq && sz > 0u && !far) res |= 1u << c;
-  }
-  return res;
-}
-
 // Output row r (a compile-time constant after unrolling) of state i.
 __device__ __forceinline__ void cs_store(int32_t* __restrict__ out, int64_t N,
                                          int64_t i, int A, int r,
@@ -209,21 +89,6 @@ __device__ __forceinline__ void cs_store(int32_t* __restrict__ out, int64_t N,
 #pragma unroll
     for (int c = 0; c < 5; ++c) dst[c] = val[r][c];
   }
-}
-
-// The sub-rows of a state's two bounds, and `far` (fast mode).
-__device__ __forceinline__ bool cs_subrows(const uint32_t* __restrict__ rows, int row_w,
-                                           int subw, int exact, uint32_t mlo,
-                                           uint32_t hi, const uint32_t** lo_sub,
-                                           const uint32_t** hi_sub) {
-  *lo_sub = rows + (size_t)(mlo >> 9) * row_w;
-  if (exact) {
-    *hi_sub = rows + (size_t)(hi >> 9) * row_w;
-    return false;
-  }
-  const int d = (int)(hi >> 9) - (int)(mlo >> 9);
-  *hi_sub = d > 0 ? *lo_sub + subw : *lo_sub;
-  return d > 1;
 }
 
 // The call's arguments (one kernel parameter block).
@@ -266,24 +131,11 @@ __device__ __forceinline__ uint32_t cs_coop(const CsArgs& a, int64_t tile, int l
     const int sg = __shfl_sync(CS_FULL, g, src);
     const uint32_t srn = __shfl_sync(CS_FULL, rn, src);
     const int64_t si = (tile << 5) + src;
-    const uint32_t hi = smlo + ssize;
-    const uint32_t *lo_sub, *hi_sub;
-    const bool far = cs_subrows(a.rows, a.row_w, a.subw, a.exact, smlo, hi, &lo_sub, &hi_sub);
-    CsBound blo = {}, bhi = {};
+    int32_t val[5][5];
+    const uint32_t gres = cs_state<L>(a.rows, a.row_w, a.subw, a.exact, a.has_n, a.C, a.A,
+                                      has, j, smlo, solo, ssize, serr, sg, srn,
+                                      has ? a.u_tab[sg] : 0, has ? a.lreq_tab[sg] : 0, val);
     if (has) {
-      blo = cs_part<L>(lo_sub, (int)(smlo & 511u), a.has_n, j);
-      bhi = cs_part<L>(hi_sub, (int)(hi & 511u), a.has_n, j);
-    }
-    cs_reduce<L>(blo);
-    cs_reduce<L>(bhi);
-    uint32_t gres = 0;
-    if (has) {
-      uint32_t occ_lo[5], occ_hi[5], s_lo, s_hi;
-      cs_occ(blo, smlo, occ_lo, &s_lo);
-      cs_occ(bhi, hi, occ_hi, &s_hi);
-      int32_t val[5][5];
-      gres = cs_tail(a.C, a.A, occ_lo, occ_hi, s_lo, s_hi, solo, srn, serr, sg,
-                     a.u_tab[sg], a.lreq_tab[sg], far, val);
       // lane r of the group writes output row r
 #pragma unroll
       for (int r = 0; r < 5; ++r)
@@ -370,18 +222,10 @@ __global__ void __launch_bounds__(CS_THREADS) candidate_step_kernel(const CsArgs
         if (nwork > CS_COOP_MAX) {
           // many working states: each lane reads its own state's sub-rows
           if (work) {
-            const uint32_t hi = mlo + size;
-            const uint32_t *lo_sub, *hi_sub;
-            const bool far =
-                cs_subrows(a.rows, a.row_w, a.subw, a.exact, mlo, hi, &lo_sub, &hi_sub);
-            const CsBound blo = cs_part<1>(lo_sub, (int)(mlo & 511u), a.has_n, 0);
-            const CsBound bhi = cs_part<1>(hi_sub, (int)(hi & 511u), a.has_n, 0);
-            uint32_t occ_lo[5], occ_hi[5], s_lo, s_hi;
-            cs_occ(blo, mlo, occ_lo, &s_lo);
-            cs_occ(bhi, hi, occ_hi, &s_hi);
             int32_t val[5][5];
-            res = cs_tail(a.C, A, occ_lo, occ_hi, s_lo, s_hi, olo, rn, (int32_t)err, g,
-                          a.u_tab[g], a.lreq_tab[g], far, val);
+            res = cs_state<1>(a.rows, a.row_w, a.subw, a.exact, a.has_n, a.C, A, true, 0,
+                              mlo, olo, size, (int32_t)err, g, rn, a.u_tab[g],
+                              a.lreq_tab[g], val);
 #pragma unroll
             for (int r = 0; r < 5; ++r)
               if (r < R) cs_store(out, N, i, A, r, val);

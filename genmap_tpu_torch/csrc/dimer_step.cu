@@ -78,17 +78,14 @@
 // DS_MIN_BLOCKS come from that sweep, which builds this file with them
 // overridden (-D).
 //
+// A state's step (ds_state and its helpers) is in genmap.cuh, shared with
+// extend_level.cu.
+//
 // Layouts: st [R, N] (flo, rlo, size, err[, plan]); out [R, N, 16];
 // valid2 [N, 16]; far [N].  State i is in block i / per_block; its group is
 // st[4][i] when R == 5 (search plan) or (i % per_block) / inner (tree node).
 
 #include "genmap.cuh"
-
-#define GM_D_CUM 16
-#define GM_D_DELTA 32
-#define GM_D_MONO 60
-#define GM_D_WIDTH 64
-#define GM_D_SLOTS 16
 
 #define DS_FULL 0xFFFFFFFFu
 #define DS_THREADS 128
@@ -107,41 +104,6 @@
 #define DS_MIN_BLOCKS 6
 #endif
 
-// Mask of the 4-bit fields < nf of one word (a shift by 32 is undefined).
-__device__ __forceinline__ uint32_t gm_nibble_mask(int nf) {
-  if (nf <= 0) return 0u;
-  if (nf >= 8) return 0xFFFFFFFFu;
-  return (1u << (4 * nf)) - 1u;
-}
-
-// Bits of the fields of `w` equal to code t, among the fields of mask m
-// (fields past the bound are cut by m, so code 0 does not count them).
-__device__ __forceinline__ uint32_t gm_code_count(uint32_t w, uint32_t m, int t) {
-  const uint32_t x = w ^ (0x11111111u * (uint32_t)t);
-  return __popc(~(x | (x >> 1) | (x >> 2) | (x >> 3)) & m);
-}
-
-// W consecutive words from p (4W-byte aligned) by the widest loads.
-template <int W>
-__device__ __forceinline__ void ds_ld(const uint32_t* __restrict__ p, uint32_t* v) {
-  if constexpr (W == 1) {
-    v[0] = p[0];
-  } else if constexpr (W == 2) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < W / 4; ++k) {
-      const uint4 x = reinterpret_cast<const uint4*>(p)[k];
-      v[4 * k] = x.x;
-      v[4 * k + 1] = x.y;
-      v[4 * k + 2] = x.z;
-      v[4 * k + 3] = x.w;
-    }
-  }
-}
-
 // W consecutive slots of an output row from v (4W-byte aligned).
 template <int W>
 __device__ __forceinline__ void ds_st(int32_t* __restrict__ p, const int32_t* v) {
@@ -155,42 +117,6 @@ __device__ __forceinline__ void ds_st(int32_t* __restrict__ p, const int32_t* v)
       reinterpret_cast<int4*>(p)[k] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
                                                 v[4 * k + 3]);
   }
-}
-
-// One of four values by a run-time index (selects: no local memory).
-__device__ __forceinline__ uint32_t ds_sel4(const uint32_t v[4], int y) {
-  return y == 0 ? v[0] : y == 1 ? v[1] : y == 2 ? v[2] : v[3];
-}
-
-// The words of one bound that lane j of a state needs for its C codes
-// C*j .. C*j + C - 1: their cumulative counts, the delta and mono words
-// holding them (one word per four codes), the two field words of the
-// bound's 16-symbol group.
-template <int C>
-struct DsWords {
-  static constexpr int NW = C >= 4 ? C / 4 : 1;
-  uint32_t cum[C], dw[NW], mw[NW], f0, f1;
-  int tail;
-};
-
-template <int C>
-__device__ __forceinline__ void ds_load(const uint32_t* __restrict__ sub, uint32_t p, int j,
-                                        DsWords<C>& w) {
-  constexpr int NW = DsWords<C>::NW;
-  const int off = (int)(p & 127u);
-  const int d = off >> 4;
-  w.tail = off & 15;
-  const uint2 f = w.tail > 0 ? reinterpret_cast<const uint2*>(sub)[d] : make_uint2(0u, 0u);
-  w.f0 = f.x;
-  w.f1 = w.tail > 8 ? f.y : 0u;
-  ds_ld<C>(sub + GM_D_CUM + C * j, w.cum);
-  if (d > 0) {
-    ds_ld<NW>(sub + GM_D_DELTA + 4 * (d - 1) + ((C * j) >> 2), w.dw);
-  } else {
-#pragma unroll
-    for (int k = 0; k < NW; ++k) w.dw[k] = 0u;
-  }
-  ds_ld<NW>(sub + GM_D_MONO + ((C * j) >> 2), w.mw);
 }
 
 // The call's arguments (one kernel parameter block).
@@ -212,21 +138,6 @@ struct DsArgs {
   int U;  // tiles per warp at a time (<= DS_UMAX)
 };
 
-// Packed per-state flags of a working state (`rn`): bit 0 a right step,
-// bit 1 a mono step, bits 8-15 nchA, bits 16-23 nchB.  Returns the error
-// count after the step's two chars of dimer code t (*e_mid: after the
-// first).
-__device__ __forceinline__ int32_t ds_errs(int32_t err, uint32_t rn, int t, int32_t* e_mid) {
-  const bool right = (rn & 1u) != 0;
-  const int na = (int)((rn >> 8) & 0xFFu), nb = (int)(rn >> 16);
-  const int c2 = t >> 2, c1 = t & 3;
-  // a left step consumes (c2, c1), a right step their complements
-  const int first = right ? 3 - c2 : c2;
-  const int second = right ? 3 - c1 : c1;
-  *e_mid = err + ((first != na || na >= 4) ? 1 : 0);
-  return *e_mid + ((second != nb || nb >= 4) ? 1 : 0);
-}
-
 // The warp's nwork working states (lane of working rank k: order[k]), 32 / L
 // at a time with L = 16 / C lanes each (lane j of a state takes codes C*j ..
 // C*j + C - 1); returns to each working lane its valid2 bits (far in bit
@@ -239,7 +150,6 @@ __device__ __forceinline__ uint32_t ds_coop(const DsArgs& a, int64_t tile, int l
                                             uint32_t rn, uint32_t res) {
   constexpr int L = 16 / C;   // lanes per state
   constexpr int GPW = 32 / L; // states per pass
-  constexpr int NW = DsWords<C>::NW;
   const int q = lane / L;  // this lane's state in the pass
   const int j = lane % L;  // its lane in the state
   const int t0 = C * j;    // its first code
@@ -255,154 +165,12 @@ __device__ __forceinline__ uint32_t ds_coop(const DsArgs& a, int64_t tile, int l
     const int sg = __shfl_sync(DS_FULL, g, src);
     const uint32_t srn = __shfl_sync(DS_FULL, rn, src);
     const int64_t si = (tile << 5) + src;
-    const uint32_t hi = smlo + ssize;
-    // the sub-rows of the two bounds (fast: the paired row at mlo; `far`
-    // past its 256-symbol window)
-    const uint32_t* lo_sub = a.rows + (size_t)(smlo >> 7) * a.row_w;
-    const uint32_t* hi_sub;
-    bool far_win = false;
-    if (a.exact) {
-      hi_sub = a.rows + (size_t)(hi >> 7) * a.row_w;
-    } else {
-      const int dq = (int)(hi >> 7) - (int)(smlo >> 7);
-      hi_sub = dq > 0 ? lo_sub + GM_D_WIDTH : lo_sub;
-      far_win = dq > 1;
-    }
-    DsWords<C> w0, w1;
-    int32_t u_mid = 0, u_end = 0, l_mid = 0, l_end = 0;
-    if (has) {
-      ds_load<C>(lo_sub, smlo, j, w0);
-      ds_load<C>(hi_sub, hi, j, w1);
-      u_mid = a.u_mid_tab[sg];
-      u_end = a.u_end_tab[sg];
-      l_mid = a.l_mid_tab[sg];
-      l_end = a.l_end_tab[sg];
-    } else {
-      w0.tail = w1.tail = 0;
-      w0.f0 = w0.f1 = w1.f0 = w1.f1 = 0u;
-#pragma unroll
-      for (int c = 0; c < C; ++c) w0.cum[c] = w1.cum[c] = 0u;
-#pragma unroll
-      for (int c = 0; c < NW; ++c) w0.dw[c] = w1.dw[c] = w0.mw[c] = w1.mw[c] = 0u;
-    }
-    // each code's count among the fields before the bound (at most 15 per
-    // bound: the lo bound's in bits 0-15 of `run`, the hi bound's in bits
-    // 16-31), its inclusive prefix over the lane's codes, and then over the
-    // state's lanes before this one by a scan
-    const uint32_t m00 = gm_nibble_mask(w0.tail) & 0x11111111u;
-    const uint32_t m01 = gm_nibble_mask(w0.tail - 8) & 0x11111111u;
-    const uint32_t m10 = gm_nibble_mask(w1.tail) & 0x11111111u;
-    const uint32_t m11 = gm_nibble_mask(w1.tail - 8) & 0x11111111u;
-    // L[t] of both bounds and the mono thresholds at codes 3, 7, 11, 15
-    uint32_t L0[C], L1[C], M0[NW], M1[NW];
-    uint32_t run = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int t = t0 + c;
-      run += gm_code_count(w0.f0, m00, t) + gm_code_count(w0.f1, m01, t) +
-             ((gm_code_count(w1.f0, m10, t) + gm_code_count(w1.f1, m11, t)) << 16);
-      const int sh = 8 * (t & 3);
-      const int wi = C >= 4 ? c >> 2 : 0;
-      const uint32_t in0 = ((w0.dw[wi] >> sh) & 0xFFu) + (run & 0xFFFFu);
-      const uint32_t in1 = ((w1.dw[wi] >> sh) & 0xFFu) + (run >> 16);
-      L0[c] = w0.cum[c] + in0;
-      L1[c] = w1.cum[c] + in1;
-      if (C >= 4 ? (c & 3) == 3 : c == C - 1) {
-        // bit 31 of the first mono word is the sub-row flag, not a count
-        const uint32_t fm = t == 3 ? 0x7FFFFFFFu : 0xFFFFFFFFu;
-        M0[wi] = (w0.mw[wi] & fm) + in0;
-        M1[wi] = (w1.mw[wi] & fm) + in1;
-      }
-    }
-    // a flagged sub-row: bit 31 of its first mono word (held by lane 0)
-    const bool flag = j == 0 && ((w0.mw[0] | w1.mw[0]) >> 31) != 0u;
-    uint32_t incl = run;
-#pragma unroll
-    for (int o = 1; o < L; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(DS_FULL, incl, o, L);
-      if (j >= o) incl += y;
-    }
-    const uint32_t excl = incl - run;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      L0[c] += excl & 0xFFFFu;
-      L1[c] += excl >> 16;
-    }
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      M0[k] += excl & 0xFFFFu;
-      M1[k] += excl >> 16;
-    }
-    const uint32_t fb = __ballot_sync(DS_FULL, has && flag);
-    const uint32_t gmask = ((1u << L) - 1u) << (L * q);
-    // differences with code t - 1 (across the lane edge by a shuffle) and
-    // the slice total at code 15
-    uint32_t S[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) S[c] = L1[c] - L0[c];
-    uint32_t Lp = 0u, Sp = 0u, S15 = S[C - 1];
-    if constexpr (L > 1) {
-      Lp = __shfl_up_sync(DS_FULL, L0[C - 1], 1, L);
-      Sp = __shfl_up_sync(DS_FULL, S[C - 1], 1, L);
-      if (j == 0) Lp = Sp = 0u;
-      S15 = __shfl_sync(DS_FULL, S[C - 1], L - 1, L);
-    }
-    const bool far = (fb & gmask) != 0u || (a.exact ? S15 != ssize : far_win);
-    const bool right = (srn & 1u) != 0;
-    const bool mono = (srn & 2u) != 0;
-    // the mono thresholds of y = 0..3 (code 4y + 3), gathered in every lane
-    uint32_t Mlo[4], Ms[4];
-    if (a.with_mono) {
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int wi = C >= 4 ? (((4 * y + 3) % C) >> 2) : 0;
-        const uint32_t mlo_v = M0[wi], ms_v = M1[wi] - M0[wi];
-        if constexpr (L > 1) {
-          Mlo[y] = __shfl_sync(DS_FULL, mlo_v, (4 * y + 3) / C, L);
-          Ms[y] = __shfl_sync(DS_FULL, ms_v, (4 * y + 3) / C, L);
-        } else {
-          Mlo[y] = mlo_v;
-          Ms[y] = ms_v;
-        }
-      }
-    }
-    // this lane's candidates: row values of slots t0 .. t0 + C - 1
     int32_t vf[C], vr[C], vs[C], ve[C];
-    uint32_t okb = 0u;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int t = t0 + c;
-      const uint32_t lprev = c ? L0[c - 1] : Lp;
-      const uint32_t sprev = c ? S[c - 1] : Sp;
-      uint32_t xm = a.C2[t] + (L0[c] - lprev);  // the stepped interval's start
-      uint32_t xs = S[c] - sprev;               // its size
-      uint32_t xo = solo + (S15 - S[c]);        // its companion's start
-      int32_t e_mid;
-      int32_t e2 = ds_errs(serr, srn, t, &e_mid);
-      bool ok = e_mid <= u_mid && e_mid >= l_mid && e2 <= u_end && e2 >= l_end;
-      if (a.with_mono && mono) {
-        // mono candidate t (slots 0..A-1); right steps read the
-        // complement-permuted results (N maps to itself)
-        const int pc = right ? (t == 4 ? 4 : 3 - t) : t;
-        const int y = pc < 0 ? 0 : (pc > 3 ? 3 : pc);
-        const uint32_t b_lo = y > 0 ? ds_sel4(Mlo, y - 1) : 0u;
-        const uint32_t b_s = y > 0 ? ds_sel4(Ms, y - 1) : 0u;
-        const uint32_t a_s = ds_sel4(Ms, y);
-        const bool n_cand = pc == 4;  // N: impossible in unflagged rows
-        xm = n_cand ? 0u : a.C[y] + (ds_sel4(Mlo, y) - b_lo);
-        xs = n_cand ? 0u : a_s - b_s;
-        xo = n_cand ? 0u : solo + (Ms[3] - a_s);
-        const int na = (int)((srn >> 8) & 0xFFu);
-        e2 = serr + ((t != na || na >= 4) ? 1 : 0);
-        ok = t < a.A && e2 <= u_end && e2 >= l_end;
-      }
-      ok = ok && xs > 0u && !far;
-      okb |= (ok ? 1u : 0u) << c;
-      vf[c] = (int32_t)(right ? xo : xm);
-      vr[c] = (int32_t)(right ? xm : xo);
-      vs[c] = (int32_t)xs;
-      ve[c] = e2;
-    }
+    const uint32_t bits = ds_state<C>(
+        a.rows, a.row_w, a.exact, a.C2, a.C, a.A, a.with_mono, has, lane, smlo, solo,
+        ssize, serr, srn, has ? a.u_mid_tab[sg] : 0, has ? a.u_end_tab[sg] : 0,
+        has ? a.l_mid_tab[sg] : 0, has ? a.l_end_tab[sg] : 0, vf, vr, vs, ve);
+    const bool mono = (srn & 2u) != 0;
     // lane j stores its slots of each defined row (a mono step: slots < A)
     if (has) {
       constexpr int V = C < 4 ? C : 4;
@@ -432,10 +200,7 @@ __device__ __forceinline__ uint32_t ds_coop(const DsArgs& a, int64_t tile, int l
         }
       }
     }
-    // the state's valid2 bits (OR over its lanes) and far, to its own lane
-    uint32_t bits = (okb << t0) | (far ? 1u << 16 : 0u);
-#pragma unroll
-    for (int o = 1; o < L; o <<= 1) bits |= __shfl_xor_sync(DS_FULL, bits, o, L);
+    // the state's valid2 bits and far, to its own lane
     const uint32_t got = __shfl_sync(DS_FULL, bits, ((rk - base) & (GPW - 1)) * L);
     if (work && rk >= base && rk < base + GPW) res = got;
   }

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, bind, launch, plain versions.
 
-Ten kernels carry `map`, and an eleventh measures the rank-row reads they
+Eleven kernels carry `map`, and a twelfth measures the rank-row reads they
 are built on (sources in `csrc/`, compiled with nvcc for sm_90a into one
 shared library each, loaded with ctypes):
 
@@ -23,6 +23,9 @@ shared library each, loaded with ctypes):
   row_gather       the sum of random table rows, and dependent chains of
                    row reads (the Pallas row-DMA harness's function; run by
                    `experiments/row_gather.py`, not by `map`)
+  extend_level     consecutive levels of the doubling-tree extension: every
+                   step of a level and its compaction, each (block, node)
+                   frontier kept on chip
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it (the CPU tests' path and the reference the kernel
@@ -1316,6 +1319,162 @@ def seed_build(index, t0: int):
     return mlo, size
 
 
+# ---------------------------------------------------------------------------
+# 12. extend_level
+# ---------------------------------------------------------------------------
+
+EXTEND_LEVEL = Kernel(
+    # _ext_phase (:907) and _ext_phase_fused (:1020), with the levels of
+    # _extend_to_kmers (:1124): consecutive tree levels, each its pmap
+    # gather, cut or pad, and its steps with their compactions
+    "extend_level", "extend_level.cu", "genmap_tpu/search/engine.py:907/1020/1124",
+    [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L, _L, _L, _I, _P, _P, _P, _P,
+     _P, _P, _L, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P],
+)
+EXTEND_LEVEL_MAX_LEVELS = 16  # levels a launch runs at most (csrc/extend_level.cu)
+# dynamic shared memory a block of the kernel takes at most (EL_SMEM_MAX):
+# one warp's two frontiers of the widest level's Fe states
+EXTEND_LEVEL_SMEM = 196608
+
+
+def extend_level_plain(index, st, valid, needles, pmaps, tabs, widths, *, dimer: bool,
+                       exact: bool, errors: int, cap=None, far=None,
+                       with_occ: bool = False):
+    """Plain PyTorch version of `extend_level`: per level the pmap gather,
+    the cut (`compact_plain` to its width), and per step
+    `candidate_step_plain` or `dimer_step_plain` on every state and
+    `compact_plain` of every (block, node) row."""
+    R, B = st.shape[:2]
+    dev = st.device
+    ovf = torch.zeros(B, dtype=torch.bool, device=dev)
+    ovf_far = torch.zeros_like(ovf)
+    occs = []
+    for pmap, tab, Fe in zip(pmaps, tabs, widths):
+        Mp, Fp = st.shape[2:]
+        M, T = pmap.shape[0], tab.shape[1]
+        p = pmap.to(torch.int64)
+        x, v, of = compact_plain(st[:, :, p].reshape(R, B * M, Fp),
+                                 valid[:, p].reshape(B * M, Fp), Fe)
+        ovf |= of.view(B, M).bool().any(dim=-1)
+        occ = (torch.zeros(B, dtype=torch.int32, device=dev) if T else
+               v.view(B, M, Fe).sum(dim=-1, dtype=torch.int32).amax(dim=-1))
+        u = torch.full((M,), errors, dtype=torch.int32, device=dev)
+        zero = torch.zeros(M, dtype=torch.int32, device=dev)
+        pos = tab[2:].to(torch.int64)
+        for t in range(T):
+            cons, right = tab[0, t].to(torch.uint8), tab[1, t].to(torch.uint8)
+            step = dict(per_block=M * Fe, inner=Fe, right=right, exact=exact)
+            if dimer:
+                kinds = set(cons.tolist())
+                out, valid2, f = dimer_step_plain(
+                    index, x.reshape(R, -1), v.reshape(-1), consume=cons, u_mid=u,
+                    u_end=u, l_mid=zero, l_end=zero, nchA=needles[:, pos[0, t]],
+                    nchB=needles[:, pos[1, t]], with_mono=1 in kinds,
+                    with_pass=0 in kinds, **step)
+            else:
+                out, valid2, f = candidate_step_plain(
+                    index, x.reshape(R, -1), v.reshape(-1), nch=needles[:, pos[0, t]],
+                    act=cons, u=u, lreq=zero, **step)
+            x, v, of, n = compact_plain(out.reshape(R, B * M, -1),
+                                        valid2.reshape(B * M, -1), Fe, True)
+            ovf |= of.view(B, M).bool().any(dim=-1)
+            ovf_far |= f.view(B, -1).bool().any(dim=-1)
+            occ = torch.maximum(occ, n.view(B, M).amax(dim=-1))
+        st, valid = x.view(R, B, M, Fe), v.view(B, M, Fe)
+        occs.append(occ)
+    if cap is not None:
+        ovf |= cap.bool()
+    if far is not None:
+        ovf_far |= far.bool()
+    res = (st, valid, ovf, ovf_far)
+    return res + (torch.stack(occs, dim=1),) if with_occ else res
+
+
+def extend_level(index, st, valid, needles, pmaps, tabs, widths, *, dimer: bool,
+                 exact: bool, errors: int, cap=None, far=None, with_occ: bool = False):
+    """Consecutive levels of the doubling-tree extension (`search/engine.py`
+    `_tree_levels`) of every block of a batch, in one launch.
+
+    st [4, B, Mp, Fp] int32 (flo, rlo, size, err) and valid [B, Mp, Fp]
+    uint8: the first level's parent frontiers; per level (the sequences
+    `pmaps`, `tabs`, `widths`, at most EXTEND_LEVEL_MAX_LEVELS): pmap [M]
+    int32, each of its M nodes' parent in the level before; tab [4, T, M]
+    int32, per step and node consume (0 passthrough, 1 one character, 2
+    two: the dimer rows only), right, and the needle positions of its first
+    and second character; its width Fe.  needles [B, Ln] uint8; errors:
+    every node's error bound.  Each (block, node) frontier is its parent's
+    first Fe valid states, in order, then each step extends every state by
+    every candidate (as `candidate_step`, or `dimer_step` with `dimer`;
+    `exact` picks the rank mode) and keeps the first Fe valid candidates in
+    (state, slot) order (as `compact`).  cap / far [B] (bool or uint8,
+    None: none) are the block flags so far.
+
+    Returns (st [4, B, M, Fe] int32, valid [B, M, Fe] uint8: the last
+    level's frontiers, zeros past their count; cap [B] bool: cap or more
+    valid states than a cut or a step kept; far [B] bool: far or a step's
+    far), and with `with_occ` occ [B, levels] int32: per block and level
+    the most candidates a step had before its cut (on a stepless level the
+    most states a cut kept).  Every output is written."""
+    if not st.is_cuda:
+        return extend_level_plain(index, st, valid, needles, pmaps, tabs, widths,
+                                  dimer=dimer, exact=exact, errors=errors, cap=cap,
+                                  far=far, with_occ=with_occ)
+    dev = st.device
+    R, B, Mp, Fp = st.shape
+    n = len(widths)
+    widths = [int(w) for w in widths]
+    Ms = [int(p.shape[0]) for p in pmaps]
+    Ts = [int(t.shape[1]) if t.dim() == 3 else -1 for t in tabs]
+    if (R != 4 or not 1 <= n <= EXTEND_LEVEL_MAX_LEVELS or len(pmaps) != n
+            or len(tabs) != n or min(Ts) < 0 or min(Ms) < 1 or min(widths) < 1
+            or 32 * max(widths) > EXTEND_LEVEL_SMEM or Mp < 1 or Fp < 1):
+        raise ValueError(f"extend_level: bad geometry R={R} Mp={Mp} Fp={Fp} M={Ms} "
+                         f"T={Ts} widths={widths}")
+    if dimer and not index.has_dimer:
+        raise ValueError("extend_level: the index part has no dimer rows")
+    _check(st, "st", torch.int32, device=dev)
+    _check(valid, "valid", torch.uint8, (B, Mp, Fp), dev)
+    _check(needles, "needles", torch.uint8, (B, needles.shape[-1]), dev)
+    for pmap, tab, M, T in zip(pmaps, tabs, Ms, Ts):
+        _check(pmap, "pmap", torch.int32, (M,), dev)
+        _check(tab, "tab", torch.int32, (4, T, M), dev)
+    for name, t in (("cap", cap), ("far", far)):
+        if t is not None:
+            _check(t, name, t.dtype, (B,), dev)
+            if t.dtype not in (torch.bool, torch.uint8):
+                raise TypeError(f"{name}: expected bool or uint8, got {t.dtype}")
+    rows = index.dimer_blocks if dimer else index.fwd_blocks
+    _check(rows, "rank rows", torch.int32, device=dev)
+    M, Fe = Ms[-1], widths[-1]
+    out = torch.empty((4, B, M, Fe), dtype=torch.int32, device=dev)
+    out_valid = torch.empty((B, M, Fe), dtype=torch.uint8, device=dev)
+    cap_out = torch.empty((B,), dtype=torch.bool, device=dev)
+    far_out = torch.empty((B,), dtype=torch.bool, device=dev)
+    occ = torch.empty((B, n), dtype=torch.int32, device=dev) if with_occ else None
+    res = (out, out_valid, cap_out, far_out) + ((occ,) if with_occ else ())
+    if B == 0:
+        return res
+    # the levels between the first and the last pass their packed frontiers
+    # [4, B, Msc, Fsc] and counts [B, Msc] through one or two scratch buffers
+    Msc, Fsc = (max(Ms[:-1]), max(widths[:-1])) if n > 1 else (0, 0)
+    scratch = (torch.empty(min(2, n - 1) * B * Msc * (4 * Fsc + 1), dtype=torch.int32,
+                           device=dev) if n > 1 else None)
+    EXTEND_LEVEL.launch(
+        rows.data_ptr(), rows.shape[1], sub_width(index.has_n), index.C.data_ptr(),
+        (index.C2 if dimer else index.C).data_ptr(), int(index.has_n), index.nchars,
+        int(dimer), int(exact), int(errors), st.data_ptr(), valid.data_ptr(), B, Mp, Fp,
+        n, (_P * n)(*(p.data_ptr() for p in pmaps)), (_P * n)(*(t.data_ptr() for t in tabs)),
+        (_I * n)(*Ts), (_I * n)(*Ms), (_I * n)(*widths), needles.data_ptr(),
+        needles.shape[1], None if cap is None else cap.data_ptr(),
+        None if far is None else far.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), Msc, Fsc, out.data_ptr(),
+        out_valid.data_ptr(), cap_out.data_ptr(), far_out.data_ptr(),
+        None if occ is None else occ.data_ptr(), _stream(st),
+    )
+    return res
+
+
 KERNELS = {k.name: k for k in (EXTRACT_NEEDLES, CANDIDATE_STEP, COMPACT,
                                COUNT_TAIL, PROBE_MASS, LOCATE, DIMER_STEP,
-                               SEED_LOOKUP, GATHER_STATES, ROW_GATHER, SEED_BUILD)}
+                               SEED_LOOKUP, GATHER_STATES, ROW_GATHER, SEED_BUILD,
+                               EXTEND_LEVEL)}

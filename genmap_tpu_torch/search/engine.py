@@ -13,7 +13,8 @@ counts for the engine's calibration, and the split pipeline's two phases):
     (`kernels.compact`)
   * surviving infix matches are extended to every k-mer window of the block
     along a binary doubling tree, again as a lockstep frontier over
-    [B, nodes, Fe] states, and counted (`kernels.count_tail`)
+    [B, nodes, Fe] states (on the card a tree level of narrow frontiers is
+    one launch, `kernels.extend_level`), and counted (`kernels.count_tail`)
   * frontier overflows are flagged per block and re-run at a higher capacity
     tier by the host — semantics stay exact, capacity only affects speed
   * the probe mode runs (a prefix of) the infix scan only and decides per
@@ -600,18 +601,22 @@ def _tree_levels(J: int, K: int) -> list:
 class _ExtensionLevel:
     """Device-side tables of one doubling-tree level: the mono schedule, or
     with `dimer` the fused one (consume, right, posA, posB per step and
-    node, and each step's kind)."""
+    node, and each step's kind), and both as `kernels.extend_level` reads
+    them (pmap32, tab [4, T, M]: consume, right, posA, posB)."""
 
     def __init__(self, level, errors, dev, dimer: bool = False):
         pmap, n_right, n_left, pos_right, pos_left = level
         M = len(pmap)
         self.M = M
+        self.errors = errors
         self.pmap = torch.as_tensor(pmap, dtype=torch.int64, device=dev)
+        self.pmap32 = torch.as_tensor(pmap, dtype=torch.int32, device=dev)
         self.u = torch.full((M,), errors, dtype=torch.int32, device=dev)
         self.lreq = torch.zeros(M, dtype=torch.int32, device=dev)
         if dimer:
             f = _balanced_schedule_fused(n_right, n_left, pos_right, pos_left)
             self.T = f.shape[1]
+            self.tab = torch.as_tensor(f, dtype=torch.int32, device=dev)
             self.consume = torch.as_tensor(f[0], dtype=torch.uint8, device=dev)
             self.right = torch.as_tensor(f[1], dtype=torch.uint8, device=dev)
             self.posA = torch.as_tensor(f[2], dtype=torch.int64, device=dev)
@@ -621,6 +626,8 @@ class _ExtensionLevel:
             return
         pos, right, act = _balanced_schedule(n_right, n_left, pos_right, pos_left)
         self.T = len(pos)
+        self.tab = torch.as_tensor(np.stack([act, right, pos, pos]).astype(np.int32),
+                                   device=dev).reshape(4, self.T, M)
         self.pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
         self.right = torch.as_tensor(right, dtype=torch.uint8, device=dev)
         self.act = torch.as_tensor(act, dtype=torch.uint8, device=dev)
@@ -683,6 +690,26 @@ def _ext_phase_fused(index, st, valid, ovf_cap, ovf_far, needles,
     return st, valid, ovf_cap, ovf_far, occ
 
 
+# a level of the extension takes `kernels.extend_level` (one launch for a
+# run of consecutive such levels) while the candidates of a (block, node)
+# frontier's step (frontier width x candidate slots a state) fit this; wider
+# ones (the exact mono rungs from 8,192) take the host loop of step and
+# compact launches
+EXT_LEVEL_CANDIDATES = 16384
+
+
+def level_fuses(Fe: int, slots: int) -> bool:
+    """Whether a level of frontier width Fe, slots candidates a state (A on
+    the mono rows, 16 on the dimer rows), fits `extend_level`."""
+    return Fe * slots <= EXT_LEVEL_CANDIDATES
+
+
+def _fused_level(st, Fe: int, slots: int) -> bool:
+    """Whether the level runs as one `kernels.extend_level`: on the card,
+    where it fits."""
+    return st.is_cuda and level_fuses(Fe, slots)
+
+
 def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier,
                      fe_sched=None, with_occ: bool = False):
     """Extend infix survivors to every k-mer window of each block along the
@@ -690,6 +717,11 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier,
     left- and right-moving slots sharing each step.  A dimer tier runs the
     fused steps on the dimer rows (`ext_exact` still picks the rank mode: a
     forced exact dimer tier computes wide intervals instead of flagging).
+    On the card each run of consecutive levels whose frontiers fit
+    `level_fuses` is one `kernels.extend_level` launch; other levels, and
+    every level on the CPU, loop over the step kernels (counters
+    `mapper.ext_levels_fused` and `mapper.ext_levels_looped`, a level
+    each).
 
     `fe_sched` ([levels + 1] ints) sets a frontier width per level (index
     0: the root compaction), shrinking by compaction (overflow is a
@@ -706,6 +738,7 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier,
         fe_sched = [tier.f_extend] * (len(levels) + 1)
     if len(fe_sched) != len(levels) + 1:
         raise ValueError(f"fe_sched has {len(fe_sched)} widths for {len(levels)} levels")
+    slots = kernels.DIMER_SLOTS if tier.dimer else index.nchars
     s_st, s_valid = survivors
     # compact survivors into the root slots (node covering [0, J))
     F0 = int(fe_sched[0])
@@ -713,7 +746,28 @@ def _extend_to_kmers(index, survivors, needles, levels, B: int, tier: Tier,
     st = st.view(4, B, 1, F0)
     valid = valid.view(B, 1, F0)
     ovf_far = torch.zeros(B, dtype=torch.bool, device=needles.device)
+    fused = [_fused_level(st, int(w), slots) for w in fe_sched[1:]]
+    run_end = 0
     for li, lv in enumerate(levels):
+        if li < run_end:
+            continue  # run by its run's launch
+        if fused[li]:
+            # the run of consecutive levels that fit: one launch
+            run_end = li + 1
+            while (run_end < len(levels) and fused[run_end]
+                   and run_end - li < kernels.EXTEND_LEVEL_MAX_LEVELS):
+                run_end += 1
+            run = levels[li:run_end]
+            tracing.count("mapper.ext_levels_fused", len(run))
+            st, valid, ovf_cap, ovf_far, *occ_l = kernels.extend_level(
+                index, st, valid, needles, [x.pmap32 for x in run], [x.tab for x in run],
+                [int(w) for w in fe_sched[li + 1 : run_end + 1]], dimer=tier.dimer,
+                exact=exact, errors=lv.errors, cap=ovf_cap, far=ovf_far, with_occ=with_occ,
+            )
+            if with_occ:
+                occs += occ_l[0].unbind(dim=1)
+            continue
+        tracing.count("mapper.ext_levels_looped")
         st = st.index_select(2, lv.pmap)
         valid = valid.index_select(1, lv.pmap)
         st, valid, of = _resize(st, valid, int(fe_sched[li + 1]))

@@ -471,6 +471,7 @@ def test_engine_cuda_equals_cpu(cuda, alpha):
              Tier(256, 512, 64))
     ge = MappabilityEngine(data, batch_blocks=64, tiers=tiers, device=cuda)
     ce = MappabilityEngine(data, batch_blocks=64, tiers=tiers, device="cpu")
+    steps = 0
     for K, e, o, rc in ((12, 0, 8, True), (16, 1, 10, False), (20, 2, 12, True)):
         params = SearchParams(length=K, overlap=o, rev_compl=rc)
         lay = ge.layouts[0]
@@ -479,10 +480,13 @@ def test_engine_cuda_equals_cpu(cuda, alpha):
         counts = kernels.launch_counts()
         c = ce.compute_file(ce.layouts[0], params, e, 255)
         np.testing.assert_array_equal(g.c, c.c, err_msg=f"K={K} e={e}")
-        # this genome is below the probe's gate and runs no CSV: the four
-        # kernels of the plain map path
-        assert all(counts[n] > 0 for n in ("extract_needles", "candidate_step",
-                                           "compact", "count_tail")), counts
+        # this genome is below the probe's gate and runs no CSV: the
+        # kernels of the plain map path (the extension's levels fused; at
+        # e = 0 the seed tables may leave the infix no step)
+        assert all(counts[n] > 0 for n in ("extract_needles", "compact", "count_tail",
+                                           "extend_level")), counts
+        steps += counts["candidate_step"]
+    assert steps > 0
     # CSV locations and exclude-pseudo go through the locate kernel
     params = SearchParams(length=16, overlap=10, rev_compl=True, exclude_pseudo=True)
     kernels.reset_launches()
@@ -989,3 +993,198 @@ def test_seed_build_small_parts(cuda, alpha, n):
         torch.cuda.synchronize()
         for g, w in zip(got, kernels.seed_build_plain(ci if t0 < 8 else gi, t0)):
             _eq(g, w)
+
+
+# ---------------------------------------------------------------------------
+# extend_level: runs of doubling-tree levels in one launch, against the host loop
+# ---------------------------------------------------------------------------
+
+
+def _repeat_genome(seed=4, n=5000, copies=12, unit_len=240):
+    """Random flanks around `copies` 2 %-mutated copies of one unit."""
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, 4, unit_len, dtype=np.uint8)
+    reps = []
+    for _ in range(copies):
+        u = unit.copy()
+        m = rng.random(unit_len) < 0.02
+        u[m] = rng.integers(0, 4, int(m.sum()))
+        reps.append(u)
+    return np.concatenate([rng.integers(0, 4, n, dtype=np.uint8), *reps,
+                           rng.integers(0, 4, n // 2, dtype=np.uint8)])
+
+
+_EXT = {}
+
+
+def _ext_inputs(cuda, K, E, alpha=4):
+    """Phase-A survivors (the exact mono scan) of 64 blocks at (K, E) on the
+    card (a third of the blocks in the repeat), with the batch's needles
+    and the index (alpha 5: N runs in the genome, A = 5 candidates)."""
+    from genmap_tpu_torch.search import engine as te
+
+    key = (K, E, alpha)
+    if key not in _EXT:
+        seq = _repeat_genome()
+        if alpha == 5:
+            for s0 in (300, 2000, 5400, 7000):
+                seq[s0 : s0 + 20] = 4
+        ff = FastaFile(name="g.fa")
+        ff.ids, ff.seqs = ["c1"], [seq]
+        data = build_index([ff], sampling=5)
+        index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=cuda)
+        text = rank.DeviceText.from_host(data, cuda)
+        J = 5 if K == 20 else 50
+        B = 64
+        rng = np.random.default_rng(K)
+        starts = np.sort(rng.choice(np.arange(0, data.text_len - K - J, J), B,
+                                    replace=False)).astype(np.uint32)
+        starts[: B // 3] = 5000 + J * np.arange(B // 3)
+        run = te.BlockMapper(index, text, K=K, errors=E, overlap=K - J + 1, J=J, B=B,
+                             tier=Tier(32, 64, 8, exact=True), cap=65535, rev_compl=True,
+                             collect_only=True)
+        st_ = torch.from_numpy(starts.view(np.int32)).to(cuda)
+        out = run(st_, torch.full((B,), J, dtype=torch.int32, device=cuda), data.text_len)
+        needles = rank.extract_needles(text, st_, K + J - 1, data.text_len)
+        _EXT[key] = dict(index=index, B=B, J=J, K=K, E=E, needles=needles,
+                         survivors=(out["st"], out["valid"]))
+    return _EXT[key]
+
+
+def _ext_run(b, Fe, exact, dimer, fe_sched, with_occ):
+    from genmap_tpu_torch.search import engine as te
+
+    dev = b["needles"].device
+    levels = [te._ExtensionLevel(lv, b["E"], dev, dimer)
+              for lv in te._tree_levels(b["J"], b["K"])]
+    tier = Tier(4, max(4, Fe), Fe, exact=exact, dimer=dimer, ext_exact=exact)
+    ridx = torch.arange(b["B"], dtype=torch.int32, device=dev)
+    states = kernels.gather_states(*b["survivors"], ridx, b["B"], Fe)
+    res = te._extend_to_kmers(b["index"], states, b["needles"], levels, b["B"], tier,
+                              fe_sched, with_occ)
+    torch.cuda.synchronize()
+    return res
+
+
+@pytest.mark.parametrize("K,E", [(20, 1), (101, 2)], ids=["J5", "J50"])
+@pytest.mark.parametrize("dimer", [False, True], ids=["mono", "dimer"])
+@pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])
+@pytest.mark.parametrize("Fe", [1, 4, 16, 128, 1024, "past"])
+@pytest.mark.parametrize("decay", [False, True], ids=["flat", "decaying"])
+@pytest.mark.parametrize("with_occ", [False, True], ids=["", "occ"])
+def test_extend_level(cuda, monkeypatch, K, E, dimer, exact, Fe, decay, with_occ):
+    """The engine's extension with its fitting levels fused (a launch per
+    run of them) equals the host loop of step and compact launches byte for
+    byte: final states where valid, validity, both flags and the per-level
+    demand.  `past`: a width past the kernel's budget (mono 8,192, dimer
+    2,048), which keeps the loop (decaying: until the width fits)."""
+    from genmap_tpu_torch.search import engine as te
+
+    slots = kernels.DIMER_SLOTS if dimer else 4
+    Fe = (2048 if dimer else 8192) if Fe == "past" else Fe
+    b = _ext_inputs(cuda, K, E)
+    n = len(te._tree_levels(b["J"], K))
+    sched = [Fe] + [max(1, Fe >> (i // 2)) for i in range(n)] if decay else None
+    kernels.reset_launches()
+    got = _ext_run(b, Fe, exact, dimer, sched, with_occ)
+    fused = kernels.launch_counts()["extend_level"]
+    monkeypatch.setattr(te, "_fused_level", lambda *a: False)
+    kernels.reset_launches()
+    want = _ext_run(b, Fe, exact, dimer, sched, with_occ)
+    assert kernels.launch_counts()["extend_level"] == 0
+    # a launch per run of consecutive levels that fit
+    fits = [te.level_fuses(w, slots) for w in (sched[1:] if decay else [Fe] * n)]
+    assert fused == sum(f and (i == 0 or not fits[i - 1]) for i, f in enumerate(fits))
+    if not decay:
+        assert fused == (0 if Fe in (2048, 8192) else 1)
+    (gst, gv), gcap, gfar, *gocc = got
+    (wst, wv), wcap, wfar, *wocc = want
+    _eq(gv, wv)
+    m = wv.bool()[None]
+    _eq(torch.where(m, gst, 0), torch.where(m, wst, 0))
+    _eq(gcap, wcap)
+    _eq(gfar, wfar)
+    assert len(gocc) == len(wocc) == int(with_occ)
+    for a, w in zip(gocc, wocc):
+        _eq(a, w)
+    assert wv.any()
+    if Fe == 1:
+        assert wcap.any()
+
+
+@pytest.mark.parametrize("dimer", [False, True], ids=["mono", "dimer"])
+@pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact"])
+@pytest.mark.parametrize("Fe", [1, 16])
+def test_extend_level_dna5(cuda, monkeypatch, dimer, exact, Fe):
+    """test_extend_level on a Dna5 index (A = 5 candidates; N-adjacent
+    dimer sub-rows flagged), J = 50 with occupancy."""
+    from genmap_tpu_torch.search import engine as te
+
+    b = _ext_inputs(cuda, 101, 2, alpha=5)
+    assert b["index"].nchars == 5
+    kernels.reset_launches()
+    got = _ext_run(b, Fe, exact, dimer, None, True)
+    assert kernels.launch_counts()["extend_level"] == 1
+    monkeypatch.setattr(te, "_fused_level", lambda *a: False)
+    want = _ext_run(b, Fe, exact, dimer, None, True)
+    (gst, gv), gcap, gfar, gocc = got
+    (wst, wv), wcap, wfar, wocc = want
+    _eq(gv, wv)
+    m = wv.bool()[None]
+    _eq(torch.where(m, gst, 0), torch.where(m, wst, 0))
+    for a, w in ((gcap, wcap), (gfar, wfar), (gocc, wocc)):
+        _eq(a, w)
+    assert wv.any()
+
+
+@pytest.mark.parametrize("Fe,exact,dimer,fe_sched", [
+    (4, False, False, None),
+    (16, False, True, (16, 16, 8, 8, 4)),
+    (256, True, False, (256, 128, 64, 16, 8)),
+], ids=["fast-mono-4", "fast-dimer-16", "exact-256"])
+def test_extender_card_equals_cpu(cuda, Fe, exact, dimer, fe_sched):
+    """An Extender batch (J = 16) on the card, its levels fused, equals the
+    CPU port's, which tests/test_torch_split.py holds to the JAX package's
+    make_extender at these rungs."""
+    from genmap_tpu_torch.search import engine as te
+
+    ff = FastaFile(name="g.fa")
+    ff.ids, ff.seqs = ["c1"], [_repeat_genome(seed=5, n=4000, copies=60, unit_len=150)]
+    data = build_index([ff], sampling=5)
+    K, E, O, B = 30, 1, 15, 64
+    J = K - O + 1
+    rng = np.random.default_rng(3)
+    starts = np.sort(rng.choice(np.arange(0, data.text_len - K - J, J), B,
+                                replace=False)).astype(np.uint32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        index = rank.DeviceIndex.from_part(data, data.parts[0], light=True, device=dev)
+        text = rank.DeviceText.from_host(data, dev)
+        st_ = torch.from_numpy(starts.view(np.int32)).to(dev)
+        cnt = torch.full((B,), J, dtype=torch.int32, device=dev)
+        a = te.BlockMapper(index, text, K=K, errors=E, overlap=O, J=J, B=B,
+                           tier=Tier(32, 64, 8, exact=True), cap=65535, rev_compl=True,
+                           collect_only=True)(st_, cnt, data.text_len)
+        live = torch.nonzero(a["surv"].to(torch.int32).cpu() > 0).squeeze(1)
+        n = live.numel()
+        npad = 1 << int(np.ceil(np.log2(n)))
+        ridx = torch.zeros(npad, dtype=torch.int32)
+        ridx[:n] = live
+        run = te.Extender(index, text, K=K, errors=E, overlap=O, J=J, B=npad, Fe=Fe,
+                          cap=65535, rev_compl=True, exact=exact, dimer=dimer,
+                          fe_sched=fe_sched, with_occ=True)
+        kernels.reset_launches()
+        gs = torch.zeros(npad, dtype=torch.int32)
+        gs[:n] = st_.cpu()[live]
+        gc = torch.zeros(npad, dtype=torch.int32)
+        gc[:n] = J
+        out = run(gs.to(dev), gc.to(dev), data.text_len, (a["st"], a["valid"]),
+                  ridx.to(dev), n)
+        outs.append({k: v.cpu() for k, v in out.items()})
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["extend_level"] == 1
+    got, want = outs
+    for k in ("hits", "overflow", "overflow_cap", "ext_occ"):
+        _eq(got[k], want[k])
+    assert (~want["overflow"][:n]).any() and want["ext_occ"].to(torch.int32).max() > 4

@@ -178,6 +178,15 @@ typedef void* cudaStream_t;
 #define cudaErrorInvalidValue 1
 static inline int cudaGetLastError() { return 0; }
 static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+// the vector types and warp collectives that genmap.cuh's step functions
+// name (declared only: seed_build.cu instantiates none of them)
+struct uint2 { uint32_t x, y; };
+struct uint4 { uint32_t x, y, z, w; };
+static inline uint2 make_uint2(uint32_t x, uint32_t y) { return {x, y}; }
+uint32_t __ballot_sync(uint32_t, int);
+template <class T> T __shfl_sync(uint32_t, T, int, int = 32);
+template <class T> T __shfl_up_sync(uint32_t, T, unsigned, int = 32);
+template <class T> T __shfl_xor_sync(uint32_t, T, int, int = 32);
 static inline void mock_launch(unsigned grid, unsigned threads, std::function<void()> f) {
   gridDim = {grid, 1, 1};
   blockDim = {threads, 1, 1};
